@@ -1,0 +1,156 @@
+"""PyTorch port, host side: the carried-over prepare_host, the device
+tables, the committed corpus, the import boundary and device resolution.
+
+The port's host half is a numpy copy of the JAX package's; it must give
+the SAME sig and byte-identical wire buffers for the same merged chunk."""
+
+import hashlib
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from vorbispizza_tpu.models import corpus as jax_corpus
+from vorbispizza_tpu.ops.imdct import dct_iv_matrix
+from vorbispizza_tpu_torch.device import check_fp32_matmul, resolve_device
+from vorbispizza_tpu_torch.models import corpus as torch_corpus
+from vorbispizza_tpu_torch.models.pipeline import device_tables
+from vorbispizza_tpu_torch.testing import corpus32
+from vorbispizza_tpu_torch.testing.streams import make_streams, vorbisenc_available
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def prepared(mod, srcs):
+    """(synth, plan, buckets) of one merged chunk through ``mod``'s front
+    end, merge and synthesizer (``mod``: either package's models.corpus)."""
+    fronts = [mod._front_end(s) for s in srcs]
+    synth = mod._synthesizer_for(fronts[0][0], fronts[0][1])
+    for f in fronts:
+        synth.add_setup(f[0])
+    plan, buckets, _ = mod.merge_streams([f[2:4] for f in fronts])
+    return synth, plan, buckets
+
+
+@pytest.mark.parametrize("group", ["stereo", "mono", "surround", "oddbooks",
+                                   "floor0", "values"])
+def test_prepare_host_matches_reference(group):
+    srcs = make_streams(group)
+    js, jp, jb = prepared(jax_corpus, srcs)
+    ts, tp, tb = prepared(torch_corpus, srcs)
+    sig_j, host_j, total_j = js.prepare_host(jp, jb, "f32")
+    sig_t, host_t, total_t = ts.prepare_host(tp, tb, "f32")
+    assert sig_t == sig_j
+    assert total_t == total_j
+    assert len(host_t) == len(host_j) == 9
+    for a, b in zip(host_t, host_j):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+def test_prepare_host_pads_match_reference():
+    """Forced pads (the reference's cross-shard unification) pack alike."""
+    from vorbispizza_tpu.models.pipeline import merge_pads
+
+    srcs = make_streams("stereo")
+    js, jp, jb = prepared(jax_corpus, srcs)
+    ts, tp, tb = prepared(torch_corpus, srcs)
+    pads = merge_pads([js.prepare_host(jp, jb, "f32")[0]])
+    pads = {k: (v * 2 if isinstance(v, int) else v) for k, v in pads.items()}
+    sig_j, host_j, _ = js.prepare_host(jp, jb, "f32", pads=pads)
+    sig_t, host_t, _ = ts.prepare_host(tp, tb, "f32", pads=pads)
+    assert sig_t == sig_j
+    for a, b in zip(host_t, host_j):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_device_tables_match_reference():
+    srcs = make_streams("stereo")
+    js, jp, jb = prepared(jax_corpus, srcs)
+    ts, tp, tb = prepared(torch_corpus, srcs)
+    for b in tb:
+        key = b.key
+        t = device_tables(ts, key, "cpu")
+        n, window, steps = js._bucket_static(key)
+        hi, lo = dct_iv_matrix(n // 2)
+        assert np.array_equal(t["dct"][0].numpy(), hi)
+        assert np.array_equal(t["dct"][1].numpy(), lo)
+        assert np.array_equal(t["window"].numpy(), window)
+        assert t["steps"].tolist() == [list(s) for s in steps]
+        ref_subs = js._sym_static(key)["subs"]
+        assert len(t["subs"]) == len(ref_subs)
+        for sub, ref in zip(t["subs"], ref_subs):
+            assert sub["ch_list"] == ref["ch_list"]
+            assert len(sub["vqs"]) == len(ref["vqs"])
+            for v, r in zip(sub["vqs"], ref["vqs"]):
+                assert v.dtype == torch.float32
+                assert np.array_equal(v.numpy(), r)
+        # cached per (key, device)
+        assert device_tables(ts, key, "cpu") is t
+
+
+def test_corpus32_manifest():
+    corpus = corpus32.load_corpus()  # checks every sha256
+    manifest = json.loads((corpus32.ROOT / "MANIFEST.json").read_text())
+    assert manifest["recipe"] == corpus32.RECIPE
+    assert len(corpus) == corpus32.RECIPE["streams"] == 32
+    for seed, data in enumerate(corpus):
+        name = corpus32.member_name(seed)
+        assert hashlib.sha256(data).hexdigest() == manifest["sha256"][name]
+    assert corpus32.audio_seconds() == 480.0
+
+
+def test_corpus32_reencodes_seed0():
+    if not vorbisenc_available():
+        pytest.skip("libvorbisenc is not installed")
+    data = corpus32.encode_member(0)
+    assert data == (corpus32.ROOT / corpus32.member_name(0)).read_bytes()
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        "import vorbispizza_tpu_torch.models.corpus\n"
+        "import vorbispizza_tpu_torch.kernels.build\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_corpus.decode_corpus(list(make_streams("mono")), device="cuda")
+
+
+def test_device_is_required():
+    with pytest.raises(ValueError):
+        resolve_device(None)
+    with pytest.raises(TypeError):
+        torch_corpus.decode_corpus([])  # no device= given
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_fp32_matmul_check():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="fp32 matmul"):
+            check_fp32_matmul()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        check_fp32_matmul()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

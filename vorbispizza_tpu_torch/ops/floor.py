@@ -1,0 +1,213 @@
+"""Floor1 curves from the coded-ys wire (kernel K2 and its twin).
+
+Port of three stages of vorbispizza_tpu: the ys rebuild of
+models/pipeline.py ``_fused_body`` (zero bitmask + compacted nonzero u8
+stream -> coded values), ops/floor.py ``floor1_unwrap`` (spec 7.2.2
+amplitude synthesis) and ops/floor.py ``floor1_curves`` (spec 9.2.6 line
+render + inverse-dB lookup). Everything is integer arithmetic up to the
+final ``A[v>>4] * B[v&15]`` float32 product, which the reference computes
+the same way, so the port is bit-identical to it.
+
+Floor0 and the posts/step2 floor1 wire are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import build as K
+
+#: floor1 range per multiplier (spec 7.2.2)
+RANGES = (256, 128, 86, 64)
+
+#: posts a K2 row can hold in shared memory (the spec allows 65)
+MAX_POSTS = 256
+
+
+def inverse_db_tables() -> np.ndarray:
+    """[32] float32: A[16] then B[16], with table[v] = A[v>>4] * B[v&15]
+    (ops/floor.py floor1_curves)."""
+    a = 10.0 ** (7.0 * 16.0 * np.arange(16, dtype=np.float64) / 256.0)
+    b = 10.0 ** ((7.0 * np.arange(16, dtype=np.float64) - 7.0 * 255.0) / 256.0)
+    return np.concatenate([a.astype(np.float32), b.astype(np.float32)])
+
+
+def floor1_tables(xs, half: int) -> np.ndarray:
+    """Static int32 tables of one floor1 config at one blocksize:
+    xs[P] (config order) | low_nb[P] | high_nb[P] | order[P] (config index
+    of each x-sorted post) | xs_s[P] (sorted x) | base_p[half] (largest
+    sorted post with x <= bin)."""
+    xs_np = np.asarray(xs, dtype=np.int64)
+    P = len(xs_np)
+    low_nb = np.zeros(P, dtype=np.int64)
+    high_nb = np.zeros(P, dtype=np.int64)
+    for i in range(2, P):
+        below = [j for j in range(i) if xs_np[j] < xs_np[i]]
+        above = [j for j in range(i) if xs_np[j] > xs_np[i]]
+        low_nb[i] = max(below, key=lambda j: xs_np[j])
+        high_nb[i] = min(above, key=lambda j: xs_np[j])
+    order = np.argsort(xs_np, kind="stable")
+    xs_s = xs_np[order]
+    base_p = np.searchsorted(xs_s, np.arange(half), side="right") - 1
+    return np.concatenate([xs_np, low_nb, high_nb, order, xs_s, base_p]).astype(
+        np.int32
+    )
+
+
+def _split(tab: torch.Tensor, P: int):
+    t = tab.to(torch.int64)
+    return (t[:P], t[P : 2 * P], t[2 * P : 3 * P], t[3 * P : 4 * P],
+            t[4 * P : 5 * P], t[5 * P :])
+
+
+def ys_ranks(ysmask: torch.Tensor, P2: int) -> torch.Tensor:
+    """[G, B] packed zero bitmask of P2 values a row -> int64 [G]: each
+    row's start rank in the compacted nonzero stream (exclusive prefix of
+    per-row popcounts, row-major over the padded rows as the host compacts
+    them)."""
+    shifts = torch.arange(8, device=ysmask.device, dtype=torch.int32)
+    bits = (ysmask.to(torch.int32)[..., None] >> shifts) & 1
+    counts = bits.reshape(ysmask.shape[0], -1)[:, :P2].sum(dim=1)
+    return torch.cumsum(counts, 0) - counts
+
+
+def rebuild_ys(ys01, ysmask, ysnz, P: int) -> torch.Tensor:
+    """Coded values [G, P] int64 from the ys wire (pipeline.py ys rebuild):
+    posts 0/1 raw, the rest zero or the next value of the nonzero stream."""
+    ys01 = ys01.reshape(-1, 2).to(torch.int64)
+    if P == 2:
+        return ys01
+    G = ys01.shape[0]
+    P2 = P - 2
+    shifts = torch.arange(8, device=ys01.device, dtype=torch.int32)
+    bits = (ysmask.reshape(G, -1).to(torch.int32)[..., None] >> shifts) & 1
+    flat = bits.reshape(G, -1)[:, :P2].reshape(-1).to(torch.int64)
+    rank = torch.cumsum(flat, 0) - 1
+    vals = ysnz.to(torch.int64)
+    tail = torch.where(
+        flat > 0, vals[rank.clamp(0, vals.shape[0] - 1)], 0
+    ).reshape(G, P2)
+    return torch.cat([ys01, tail], dim=1)
+
+
+def floor1_unwrap_plain(ys: torch.Tensor, tab: torch.Tensor, P: int,
+                        multiplier: int):
+    """Spec 7.2.2 step 2 on [G, P] coded values -> (posts [G, P] int64
+    clamped to the floor range, step2 [G, P] bool); ops/floor.py
+    floor1_unwrap."""
+    xs, low_nb, high_nb, _, _, _ = (v.tolist() for v in _split(tab, P))
+    rng = RANGES[multiplier - 1]
+    ysc = ys.to(torch.int64)
+    true_col = torch.ones(ysc.shape[0], dtype=torch.bool, device=ys.device)
+    final = [ysc[:, 0], ysc[:, 1]]
+    step2 = [true_col, true_col] + [None] * (P - 2)
+    for i in range(2, P):
+        lo, hi = low_nb[i], high_nb[i]
+        y0, y1 = final[lo], final[hi]
+        dy = y1 - y0
+        adx = xs[hi] - xs[lo]
+        dx = xs[i] - xs[lo]
+        off = torch.div(dy.abs() * dx, adx, rounding_mode="floor")
+        predicted = torch.where(dy < 0, y0 - off, y0 + off)
+        val = ysc[:, i]
+        highroom = rng - predicted
+        lowroom = predicted
+        room = 2 * torch.minimum(highroom, lowroom)
+        big = torch.where(
+            highroom > lowroom,
+            val - lowroom + predicted,
+            predicted - val + highroom - 1,
+        )
+        small = torch.where(
+            (val & 1) == 1, predicted - ((val + 1) >> 1), predicted + (val >> 1)
+        )
+        nz = val != 0
+        final.append(torch.where(nz, torch.where(val >= room, big, small),
+                                 predicted))
+        step2[i] = nz
+        step2[lo] = step2[lo] | nz
+        step2[hi] = step2[hi] | nz
+    posts = torch.stack(final, dim=1).clamp(0, rng - 1)
+    return posts, torch.stack(step2, dim=1)
+
+
+def floor1_curves_plain(posts, step2, used, tab: torch.Tensor, ab, P: int,
+                        multiplier: int, half: int):
+    """Piecewise-linear floor curves [G, half] float32 (ops/floor.py
+    floor1_curves), with direct lookups in place of one-hot products."""
+    _, _, _, order, xs_s, base_p = _split(tab, P)
+    y_s = posts[:, order].to(torch.int64) * multiplier
+    en_s = step2[:, order]
+    G = posts.shape[0]
+    idx = torch.arange(P, device=posts.device, dtype=torch.int64)
+    # lo[p] = largest enabled q <= p ; hi[p] = smallest enabled q > p
+    lo = torch.cummax(torch.where(en_s, idx, -1), dim=1).values
+    rmin = torch.cummin(
+        torch.where(en_s, idx, P).flip(1), dim=1
+    ).values.flip(1)
+    hi = torch.cat(
+        [rmin[:, 1:], torch.full((G, 1), P, dtype=torch.int64,
+                                 device=posts.device)], dim=1
+    )
+    lo_b = lo[:, base_p].clamp(min=0)
+    hi_b = hi[:, base_p]
+    has_hi = hi_b < P
+    hi_c = torch.where(has_hi, hi_b, 0)
+    x0 = xs_s[lo_b]
+    x1 = torch.where(has_hi, xs_s[hi_c], x0)
+    y0 = torch.gather(y_s, 1, lo_b)
+    y1 = torch.gather(y_s, 1, hi_c)
+    x = torch.arange(half, device=posts.device, dtype=torch.int64)[None, :]
+    dy = y1 - y0
+    adx = (x1 - x0).clamp(min=1)
+    off = torch.div(dy.abs() * (x - x0), adx, rounding_mode="floor")
+    val = torch.where(has_hi, y0 + torch.sign(dy) * off, y0).clamp(0, 255)
+    curve = ab[val >> 4] * ab[16 + (val & 15)]
+    return torch.where(used.reshape(-1, 1).bool(), curve, 0.0)
+
+
+def floor1_from_ys_plain(ys01, ysmask, ysnz, used, tab, ab, P: int,
+                         multiplier: int, half: int):
+    """Floor curves [G, half] float32 from the ys wire (plain twin of K2)."""
+    ys = rebuild_ys(ys01, ysmask, ysnz, P)
+    posts, step2 = floor1_unwrap_plain(ys, tab, P, multiplier)
+    return floor1_curves_plain(posts, step2, used, tab, ab, P, multiplier,
+                               half)
+
+
+def floor1_from_ys(ys01, ysmask, ysnz, used, tab, ab, P: int,
+                   multiplier: int, half: int):
+    """``floor1_from_ys_plain`` for CPU tensors; kernel K2 for CUDA ones.
+
+    ys01 u8 [G, 2]; ysmask u8 [G, ceil((P-2)/8)] and ysnz u8 [cap] (None
+    when P == 2); used u8 [G]; ``tab`` from floor1_tables; ``ab`` from
+    inverse_db_tables."""
+    if ys01.device.type == "cpu":
+        return floor1_from_ys_plain(ys01, ysmask, ysnz, used, tab, ab, P,
+                                    multiplier, half)
+    if not 2 <= P <= MAX_POSTS:
+        raise ValueError(f"floor1 with {P} posts (K2 holds 2..{MAX_POSTS})")
+    G = ys01.numel() // 2
+    ys01 = ys01.reshape(G, 2)
+    used = used.reshape(G)
+    if P > 2:
+        ysmask = ysmask.reshape(G, -1)
+        rank = ys_ranks(ysmask, P - 2)
+        cap = ysnz.numel()
+    else:
+        ysmask = ysnz = rank = ys01  # unread for P == 2
+        cap = 1
+    K.require_cuda(ys01, ysmask, ysnz, rank, used, tab, ab)
+    if tab.dtype != torch.int32 or ab.dtype != torch.float32:
+        raise TypeError("expected int32 tables and float32 A/B")
+    out = torch.empty((G, half), dtype=torch.float32, device=ys01.device)
+    if G:
+        K.launch(
+            "floor1_synth",
+            ys01.data_ptr(), ysmask.data_ptr(), ysnz.data_ptr(),
+            rank.data_ptr(), used.data_ptr(), tab.data_ptr(), ab.data_ptr(),
+            out.data_ptr(),
+            G, P, half, multiplier, RANGES[multiplier - 1], cap,
+        )
+    return out
