@@ -1,18 +1,24 @@
 """PyTorch port, end to end on the CPU: decode_corpus against the JAX
 package's decode_corpus(output="f32") and against the float64 scalar
 anchor, both within 2e-6 max-abs (the CPU allowance of the JAX package's
-own tests: the IMDCT products sum in another order on each backend)."""
+own tests: the IMDCT products sum in another order on each backend).
+
+s16: within 1 LSB of the JAX package's decode_corpus(output="s16") (the
+2e-6 PCM difference can flip a rounding), bit-equal to the host
+quantization of the port's own f32, and identical over every wire."""
 
 import numpy as np
 import pytest
 import torch
 
+from vorbispizza_tpu.config import VorbisConfig
 from vorbispizza_tpu.models.corpus import decode_corpus as jax_decode_corpus
 from vorbispizza_tpu.reader import VorbisReader
 from vorbispizza_tpu_torch import decode_corpus
 from vorbispizza_tpu_torch.testing.streams import make_streams
 
 TOL = 2e-6
+S16_TOL = 1  # LSB
 GROUPS = ("stereo", "mono", "surround", "oddbooks")
 
 
@@ -55,7 +61,8 @@ def test_stats(corpus, port):
     # one chunk per channel count: stereo, mono (+ the mono raw stream), 5.1
     assert s["chunks"] == 3
     assert set(s["stage_s"]) == {"front_end", "prepare", "h2d", "device",
-                                 "d2h"}
+                                 "d2h", "unpack"}
+    assert s["d2h_bytes"] == sum(4 * p.size for p in port)
 
 
 def test_device_output(corpus, port):
@@ -85,5 +92,70 @@ def test_on_error_none_isolates_a_bad_file():
 
 
 def test_unported_output_raises():
-    with pytest.raises(NotImplementedError, match="s16"):
-        decode_corpus(list(make_streams("mono")), device="cpu", output="s16")
+    """Every output of the reference is ported; what is still unported
+    (floor0, value-transport residues) raises, as does an unknown output."""
+    with pytest.raises(NotImplementedError, match="floor0"):
+        decode_corpus(list(make_streams("floor0")), device="cpu")
+    with pytest.raises(NotImplementedError, match="value-transport"):
+        decode_corpus(list(make_streams("values")), device="cpu",
+                      output="s16")
+    with pytest.raises(ValueError, match="s24"):
+        decode_corpus(list(make_streams("mono")), device="cpu", output="s24")
+
+
+@pytest.fixture(scope="module")
+def port_s16(corpus):
+    """The main path under the default config: the dpack wire, rice
+    resolved from the link (+inf on the CPU: width-only)."""
+    return decode_corpus(corpus, device="cpu", output="s16")
+
+
+def host_quantize(pcm):
+    return np.clip(np.rint(pcm * np.float32(32768.0)), -32768,
+                   32767).astype(np.int16)
+
+
+def test_s16_matches_jax_decode_corpus(corpus, port_s16):
+    want = jax_decode_corpus(corpus, output="s16")
+    assert len(port_s16) == len(want)
+    for got, ref in zip(port_s16, want):
+        assert got.dtype == np.int16 and got.shape == ref.shape
+        diff = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+        assert diff.max() <= S16_TOL
+
+
+def test_s16_is_the_host_quantization_of_f32(port, port_s16):
+    for got, pcm in zip(port_s16, port):
+        assert np.array_equal(got, host_quantize(pcm))
+    s = port_s16.stats
+    assert s["scalar"] == 0 and s["chunks"] == 3
+    # the dpack wire moves well under the raw s16 bytes
+    assert 0 < s["d2h_bytes"] < sum(2 * p.size for p in port)
+
+
+@pytest.mark.parametrize("wire,rice", [("dpack", "on"), ("dpack", "off"),
+                                       ("raw", "auto"), ("planes", "auto")])
+def test_s16_wires_decode_identically(corpus, port_s16, monkeypatch, wire,
+                                      rice):
+    monkeypatch.setattr(VorbisConfig.default, "s16_wire", wire)
+    monkeypatch.setattr(VorbisConfig.default, "s16_rice", rice)
+    outs = decode_corpus(corpus, device="cpu", output="s16")
+    for got, want in zip(outs, port_s16):
+        assert np.array_equal(got, want)
+    raw = sum(2 * p.size for p in port_s16)
+    if wire == "dpack":
+        assert outs.stats["d2h_bytes"] < raw
+    else:
+        assert outs.stats["d2h_bytes"] == raw
+
+
+def test_s16_scalar_route_quantizes_the_anchor():
+    from vorbispizza_tpu_torch.models.corpus import _scalar_fallback
+
+    data = make_streams("mono")[0]
+    got = _scalar_fallback(data, "s16", True, torch.device("cpu"))
+    r = VorbisReader(data)
+    r.initialize()
+    want = np.clip(np.rint(r.read_all(planar=True).astype(np.float64)
+                           * 32768.0), -32768, 32767).astype(np.int16)
+    assert got.dtype == np.int16 and np.array_equal(got, want)

@@ -39,18 +39,27 @@ def prepared(mod, srcs):
 
 @pytest.mark.parametrize("group", ["stereo", "mono", "surround", "oddbooks",
                                    "floor0", "values"])
-def test_prepare_host_matches_reference(group):
+def test_prepare_host_matches_reference(group, monkeypatch):
+    """Every output, with the dpack rice flag (sig[6]) forced on and off:
+    the same sig and byte-identical buffers."""
+    from vorbispizza_tpu.config import VorbisConfig
+
     srcs = make_streams(group)
     js, jp, jb = prepared(jax_corpus, srcs)
     ts, tp, tb = prepared(torch_corpus, srcs)
-    sig_j, host_j, total_j = js.prepare_host(jp, jb, "f32")
-    sig_t, host_t, total_t = ts.prepare_host(tp, tb, "f32")
-    assert sig_t == sig_j
-    assert total_t == total_j
-    assert len(host_t) == len(host_j) == 9
-    for a, b in zip(host_t, host_j):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        assert a.tobytes() == b.tobytes()
+    for output in ("f32", "s16", "s16p", "s16d", "s16df"):
+        for rice in ("on", "off"):
+            monkeypatch.setattr(VorbisConfig.default, "s16_rice", rice)
+            sig_j, host_j, total_j = js.prepare_host(jp, jb, output)
+            sig_t, host_t, total_t = ts.prepare_host(tp, tb, output)
+            assert sig_t == sig_j
+            dpack = output in ("s16d", "s16df")
+            assert sig_t[6] is (rice == "on" if dpack else True)
+            assert total_t == total_j
+            assert len(host_t) == len(host_j) == 9
+            for a, b in zip(host_t, host_j):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                assert a.tobytes() == b.tobytes()
 
 
 def test_prepare_host_pads_match_reference():
@@ -117,6 +126,8 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import vorbispizza_tpu_torch.models.corpus\n"
         "import vorbispizza_tpu_torch.kernels.build\n"
+        "import vorbispizza_tpu_torch.ops.pcm_pack\n"
+        "import vorbispizza_tpu_torch.utils.link\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"

@@ -8,7 +8,8 @@ same order as the reference, so they must match BIT FOR BIT; the IMDCT is
 a float32 matrix product whose summation order differs between the two
 CPU backends, held to 2e-6 (the CPU allowance of the JAX package's own
 tests); the OLA is a pure selection given the same windowed frames, so it
-matches bit for bit."""
+matches bit for bit, and so do its s16 quantization and the dpack wire of
+the same PCM."""
 
 import jax
 import jax.numpy as jnp
@@ -16,14 +17,23 @@ import numpy as np
 import pytest
 import torch
 
+from vorbispizza_tpu.decoder import CLIP_MAX
 from vorbispizza_tpu.ops.coupling import inverse_couple_batch
 from vorbispizza_tpu.ops.floor import floor1_curves, floor1_unwrap
 from vorbispizza_tpu.ops.imdct import imdct_window_batch
 from vorbispizza_tpu.ops.ola import block_assemble_wide
+from vorbispizza_tpu.ops.pcm_pack import pack_pcm
 from vorbispizza_tpu.ops.residue_sym import expand_submap as jax_expand_submap
 from vorbispizza_tpu.ops.residue_sym import unpack_bits as jax_unpack_bits
 from vorbispizza_tpu_torch.models import corpus as torch_corpus
-from vorbispizza_tpu_torch.ops import coupling, floor, imdct, ola, residue_sym
+from vorbispizza_tpu_torch.ops import (
+    coupling,
+    floor,
+    imdct,
+    ola,
+    pcm_pack,
+    residue_sym,
+)
 from vorbispizza_tpu_torch.testing.streams import make_streams
 
 IMDCT_TOL = 2e-6
@@ -224,6 +234,76 @@ def test_forward_runs_every_stage(stereo):
 
 
 def test_unported_outputs_raise(stereo):
+    """Every output runs now; an unknown one raises, and so does the
+    value-transport residue wire, which is still unported."""
     synth, sig, bufs, _ = stereo
-    with pytest.raises(NotImplementedError, match="s16"):
-        synth((*sig[:5], "s16", True), bufs)
+    with pytest.raises(ValueError, match="s24"):
+        synth((*sig[:5], "s24", True), bufs)
+    vsynth, vsig, vbufs, _ = wire("values")
+    with pytest.raises(NotImplementedError, match="value-transport"):
+        vsynth(vsig, vbufs)
+
+
+def jax_quantize(pcm):
+    """models/pipeline.py:819-826 (s16) and 883-889 (s16p planes)."""
+    clipped = jnp.clip(jnp.asarray(pcm), -CLIP_MAX, CLIP_MAX)
+    q = jnp.clip(jnp.round(clipped * 32768.0), -32768.0, 32767.0).astype(
+        jnp.int32)
+    u = (q + 32768).astype(jnp.uint32)
+    planes = jnp.stack([(u & 0xFF).astype(jnp.uint8),
+                        (u >> 8).astype(jnp.uint8)])
+    return np.asarray(q.astype(jnp.int16)), np.asarray(planes)
+
+
+@pytest.mark.parametrize("mode", ["s16", "s16p"])
+def test_ola_quantize_modes(stereo, mode):
+    """K4's s16/s16p modes (their twins on the CPU) are the reference's
+    quantization of the f32 mode's PCM, bit for bit."""
+    synth, sig, bufs, _ = stereo
+    obks = []
+    for bk in synth.buckets(sig, bufs):
+        res, flo = stage_inputs(synth, bk)
+        spectra = coupling.couple_spectrum(res, flo, bk["tables"]["steps"])
+        obks.append(synth.ola_bucket(bk, synth.dct(bk, spectra)))
+    evs, L = bufs[4:9], sig[3]
+    pcm = ola.ola_assemble(obks, evs, L, "f32")
+    q16, planes = jax_quantize(pcm.numpy())
+    got = ola.ola_assemble(obks, evs, L, mode)
+    want = q16 if mode == "s16" else planes
+    assert got.numpy().dtype == want.dtype
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), ola.ola_assemble_plain(
+        obks, evs, L, mode).numpy())
+
+
+@pytest.mark.parametrize("output", ["s16", "s16p", "s16d", "s16df"])
+def test_forward_s16_outputs(stereo, output):
+    """forward for each s16 output: raw int16 and planes are the quantized
+    f32 forward; the dpack wires unpack to the same int16, and are the
+    JAX package's pack_pcm of that q below nbytes."""
+    synth, sig, bufs, _ = stereo
+    C, L = synth.channels, sig[3]
+    q16, planes = jax_quantize(synth(sig, bufs).numpy())
+    out = synth((*sig[:5], output, False), bufs)
+    if output == "s16":
+        assert np.array_equal(out.numpy(), q16)
+        return
+    if output == "s16p":
+        assert np.array_equal(out.numpy(), planes)
+        return
+    nbt = pcm_pack.wire_rows(L, C)
+    h = out.numpy()
+    nb, plane_cap, cuts, widx = pcm_pack.parse_header(h, nbt, C)
+    head = pcm_pack.wire_header_bytes(C) + nbt
+    cap, ucap, urow = pcm_pack.wire_caps(nbt, output == "s16df")
+    assert plane_cap == 16 * cap and h.shape[0] == head + 16 * cap
+    pcm_pack.check_sections(nb, plane_cap, cuts, widx, h.shape[0] - head)
+    got = pcm_pack.unpack_pcm(h[head : head + nb], widx, C, L, cuts)
+    assert np.array_equal(got, q16)
+    payload, jnb, jwidx, jcuts = jax.jit(
+        lambda q: pack_pcm(q, cap, ucap, urow, rice=False)
+    )(jnp.asarray(q16.astype(np.int32)))
+    assert nb == int(jnb)
+    assert np.array_equal(widx, np.asarray(jwidx))
+    assert np.array_equal(cuts, np.asarray(jcuts))
+    assert np.array_equal(h[head : head + nb], np.asarray(payload)[:nb])

@@ -2,10 +2,11 @@
 
 Imports torch and numpy and the jax-free modules of vorbispizza_tpu (host
 front end, setup parsing, the float64 scalar decoder), never jax. The
-device stages are four hand-written CUDA kernels for Hopper (csrc/), each
+device stages are seven hand-written CUDA kernels for Hopper (csrc/), each
 with a plain PyTorch twin that runs for CPU tensors.
 
-Entry point: ``decode_corpus(sources, device="cuda", output="f32")``.
+Entry point: ``decode_corpus(sources, device="cuda", output="s16")`` (or
+"f32", or "device").
 """
 
 from .device import resolve_device

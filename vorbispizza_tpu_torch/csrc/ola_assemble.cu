@@ -17,6 +17,13 @@
 // flat tensor of windowed frames is therefore never written. Flat indices
 // outside [0, sum F*n) read 0. pcm = fa*va + fb*vb.
 //
+// Output mode (template parameter): f32 stores pcm; s16 and s16p also
+// replace models/pipeline.py:819-826 and 878-889. They quantize pcm in
+// registers -- clip to +-CLIP_MAX, x32768 (exact), rintf (round half to
+// even, as jnp.round), clip to [-32768, 32767] -- and store q as int16
+// (lossless: q is already in range) or as the s16p byte planes [2, C, L]
+// u8 (lo, hi of q + 32768). The float pcm is never written in those modes.
+//
 // Bound: memory -- per sample one 4-byte store, two scattered 4-byte reads
 // of d (consecutive samples read consecutive or reversed addresses, so
 // they coalesce) and a binary search over the event table, which stays in
@@ -25,6 +32,11 @@
 #include "common.cuh"
 
 #define VP_OLA_MAX_BUCKETS 64
+
+enum { VP_OUT_F32 = 0, VP_OUT_S16 = 1, VP_OUT_S16P = 2 };
+
+// vorbispizza_tpu/decoder.py CLIP_MAX: float32(0.99999994) = 1 - 2^-24
+#define VP_CLIP_MAX 0x1.fffffep-1f
 
 struct OlaBucket {
   const float* d;        // DCT-IV output [Fp*C, n/2]
@@ -65,15 +77,27 @@ __device__ __forceinline__ float flat_value(const OlaBuckets& bk, int c,
   return __fmul_rn(y, keep ? 1.0f : 0.0f);
 }
 
+// s16 quantize of one sample; comparisons (not fminf/fmaxf) keep a NaN a
+// NaN through the clips, as torch.clamp and jnp.clip do
+__device__ __forceinline__ int32_t quantize_s16(float x) {
+  x = x < -VP_CLIP_MAX ? -VP_CLIP_MAX : x;
+  x = x > VP_CLIP_MAX ? VP_CLIP_MAX : x;
+  float r = rintf(__fmul_rn(x, 32768.0f));
+  r = r < -32768.0f ? -32768.0f : r;
+  r = r > 32767.0f ? 32767.0f : r;
+  return (int32_t)r;
+}
+
 // __grid_constant__: the table stays in parameter space and is indexed
 // there, with no per-thread copy
+template <int MODE>
 __global__ void ola_assemble_kernel(const __grid_constant__ OlaBuckets bk,
                                     const int32_t* __restrict__ ev_j,
                                     const int64_t* __restrict__ da,
                                     const int64_t* __restrict__ db,
                                     const int64_t* __restrict__ va,
                                     const int64_t* __restrict__ vb,
-                                    float* __restrict__ out, int64_t Ep,
+                                    void* __restrict__ out, int64_t Ep,
                                     int64_t L, int C, int64_t Tf) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (int64_t)C * L) return;
@@ -100,16 +124,31 @@ __global__ void ola_assemble_kernel(const __grid_constant__ OlaBuckets bk,
   }
   const float fa = flat_value(bk, c, C, a, Tf);
   const float fb = flat_value(bk, c, C, b, Tf);
-  out[t] = __fadd_rn(__fmul_rn(fa, fva), __fmul_rn(fb, fvb));
+  const float pcm = __fadd_rn(__fmul_rn(fa, fva), __fmul_rn(fb, fvb));
+  if (MODE == VP_OUT_F32) {
+    ((float*)out)[t] = pcm;
+    return;
+  }
+  const int32_t q = quantize_s16(pcm);
+  if (MODE == VP_OUT_S16) {
+    ((int16_t*)out)[t] = (int16_t)q;
+  } else {
+    const uint32_t u = (uint32_t)(q + 32768);
+    ((uint8_t*)out)[t] = (uint8_t)(u & 0xFF);
+    ((uint8_t*)out)[(int64_t)C * L + t] = (uint8_t)(u >> 8);
+  }
 }
 
 // desc: host array of n_buckets rows (d, window, prime, final, base, n),
-// each an int64 (pointers as addresses)
+// each an int64 (pointers as addresses); mode: VP_OUT_F32 (out f32 [C, L]),
+// VP_OUT_S16 (int16 [C, L]) or VP_OUT_S16P (u8 [2, C, L])
 VP_API int vp_ola_assemble(const void* desc, const void* ev_j, const void* da,
                            const void* db, const void* va, const void* vb,
                            void* out, int64_t n_buckets, int64_t Ep,
-                           int64_t L, int64_t C, int64_t Tf, void* stream) {
-  if (n_buckets < 1 || n_buckets > VP_OLA_MAX_BUCKETS)
+                           int64_t L, int64_t C, int64_t Tf, int64_t mode,
+                           void* stream) {
+  if (n_buckets < 1 || n_buckets > VP_OLA_MAX_BUCKETS || mode < VP_OUT_F32 ||
+      mode > VP_OUT_S16P)
     return (int)cudaErrorInvalidValue;
   OlaBuckets bk;
   const int64_t* rows = (const int64_t*)desc;
@@ -126,11 +165,21 @@ VP_API int vp_ola_assemble(const void* desc, const void* ev_j, const void* da,
   const int64_t n = C * L;
   if (n > 0) {
     const int threads = 256;
-    ola_assemble_kernel<<<vp_blocks(n, threads), threads, 0,
-                          (cudaStream_t)stream>>>(
-        bk, (const int32_t*)ev_j, (const int64_t*)da, (const int64_t*)db,
-        (const int64_t*)va, (const int64_t*)vb, (float*)out, Ep, L, (int)C,
-        Tf);
+    const unsigned blocks = vp_blocks(n, threads);
+    cudaStream_t s = (cudaStream_t)stream;
+    const int32_t* j = (const int32_t*)ev_j;
+    const int64_t *a = (const int64_t*)da, *b = (const int64_t*)db;
+    const int64_t *pa = (const int64_t*)va, *pb = (const int64_t*)vb;
+    if (mode == VP_OUT_F32) {
+      ola_assemble_kernel<VP_OUT_F32><<<blocks, threads, 0, s>>>(
+          bk, j, a, b, pa, pb, out, Ep, L, (int)C, Tf);
+    } else if (mode == VP_OUT_S16) {
+      ola_assemble_kernel<VP_OUT_S16><<<blocks, threads, 0, s>>>(
+          bk, j, a, b, pa, pb, out, Ep, L, (int)C, Tf);
+    } else {
+      ola_assemble_kernel<VP_OUT_S16P><<<blocks, threads, 0, s>>>(
+          bk, j, a, b, pa, pb, out, Ep, L, (int)C, Tf);
+    }
   }
   return (int)cudaGetLastError();
 }

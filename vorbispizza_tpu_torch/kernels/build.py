@@ -1,10 +1,11 @@
 """Build and load the port's hand-written Hopper kernels.
 
-The CUDA sources under ``csrc/`` compile with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
-build runs at first use, into ``_build/`` (listed in ``.gitignore``), and
-the library name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the cached library.
+The CUDA sources under ``csrc/`` compile with ``nvcc`` for ``sm_90a``, one
+``nvcc -c`` per source, all started together, and link into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use, into ``_build/`` (listed in ``.gitignore``), and the library
+name carries a hash of the sources and flags, so an edited source rebuilds
+and an unchanged one loads the cached library.
 
 ``-fmad=false`` keeps every product and sum separately rounded, so each
 kernel is bit-identical to its plain PyTorch twin.
@@ -32,7 +33,7 @@ BUILD = PKG / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 ]
 
@@ -45,16 +46,25 @@ SIGNATURES = {
     "vp_residue_expand": [P] * 4 + [I] * 15 + [P],
     "vp_floor1_synth": [P] * 8 + [I] * 6 + [P],
     "vp_couple_spectrum": [P] * 4 + [I] * 4 + [P],
-    "vp_ola_assemble": [P] * 7 + [I] * 5 + [P],
+    "vp_ola_assemble": [P] * 7 + [I] * 6 + [P],
+    "vp_dpack_select": [P] * 4 + [I] * 4 + [P],
+    "vp_dpack_pack": [P] * 6 + [I] * 6 + [P],
+    "vp_dpack_unary": [P] * 5 + [I] * 7 + [P],
 }
 
 #: launches per kernel since the last reset (chip_smoke reads these to
-#: show the main path went through every kernel)
+#: show the main path went through every kernel); K4 counts each output
+#: mode under its own name
 COUNTS = {
     "residue_expand": 0,
     "floor1_synth": 0,
     "couple_spectrum": 0,
     "ola_assemble": 0,
+    "ola_assemble_s16": 0,
+    "ola_assemble_s16p": 0,
+    "dpack_select": 0,
+    "dpack_pack": 0,
+    "dpack_unary": 0,
 }
 
 _lock = threading.Lock()
@@ -90,15 +100,35 @@ def library_path() -> pathlib.Path:
 
 def _build(out: pathlib.Path) -> None:
     BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+               str(src)]
+        procs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for obj, proc in procs:
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{text[-4000:]}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *[str(o) for o, _ in procs]],
+            capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
+    for obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    (BUILD / "nvcc.log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
 
 
@@ -122,13 +152,13 @@ def load():
         return lib
 
 
-def launch(kernel: str, *args) -> None:
-    """Launch ``vp_<kernel>`` on the current CUDA stream; count it and raise
-    on a launch error."""
+def launch(kernel: str, *args, count: str | None = None) -> None:
+    """Launch ``vp_<kernel>`` on the current CUDA stream; count it (under
+    ``count``, default the kernel's name) and raise on a launch error."""
     lib = load()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, "vp_" + kernel)(*args, stream)
-    COUNTS[kernel] += 1
+    COUNTS[count or kernel] += 1
     if err != 0:
         msg = lib.vp_error_string(err).decode()
         raise RuntimeError(f"vp_{kernel} launch failed: {msg} ({err})")

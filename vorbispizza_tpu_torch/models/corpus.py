@@ -1,18 +1,30 @@
 """Corpus decode: many Ogg Vorbis streams through one device.
 
-Port of vorbispizza_tpu/models/corpus.py ``decode_corpus`` for float32
-output. Per-stream host front ends (Ogg demux + C++ entropy decode, which
-releases the GIL) run on a thread pool. The main thread consumes them in
-input order, groups streams by channel count into chunks of at least
-``max_batch_bytes`` of dense spectrum (exactly as the reference chunks, so
-the merged chunks and their sigs match), merges each chunk into one plan
-(``merge_streams``), packs it (``BatchSynthesizer.prepare_host``), copies
-the four typed buffers and five event arrays to the device, runs the
-synthesis on the current CUDA stream, and copies the PCM back once.
+Port of vorbispizza_tpu/models/corpus.py ``decode_corpus``. Per-stream
+host front ends (Ogg demux + C++ entropy decode, which releases the GIL)
+run on a thread pool. The main thread consumes them in input order, groups
+streams by channel count into chunks of at least ``max_batch_bytes`` of
+dense spectrum (exactly as the reference chunks, so the merged chunks and
+their sigs match), merges each chunk into one plan (``merge_streams``),
+packs it (``BatchSynthesizer.prepare_host``), copies the four typed
+buffers and five event arrays to the device, runs the synthesis on the
+current CUDA stream, and copies the output back once.
+
+``output="s16"`` follows ``VorbisConfig.s16_wire`` as the reference does,
+with one difference: "dpack" runs the FULL-capacity wire ("s16df", at most
+288 B per 128-sample block plus the unary section) instead of the
+reference's soft-capacity "s16d". A chunk then never overflows its wire,
+so the reference's PackOverflow re-run of a chunk is not needed: a wire
+that fails its checks raises. The pull copies the header and width table
+into pinned memory, reads nbytes, checks the sections, and makes ONE
+exact-size copy of ``payload[:nbytes]`` into pinned memory (the
+reference's tunnel paging, ops/pcm_pack.py start_page0/pull_wire, is not
+needed on PCIe); the host unpacks it (ops.pcm_pack.unpack_pcm).
+``s16_rice="auto"`` resolves from the measured link rate (utils/link.py).
 
 Streams the batch planner rejects (BatchUnsupported) decode through the
 float64 scalar anchor, as in the reference; ``stats["scalar"]`` counts
-them. Pinned buffers and copy/compute overlap are not here yet.
+them. Copy/compute overlap across chunks is not here yet.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from vorbispizza_tpu.frames import (
 from vorbispizza_tpu.ogg.container import OggContainer
 
 from ..device import resolve_device
+from ..ops import pcm_pack
 from .pipeline import BatchSynthesizer
 
 _SYNTH_CACHE: dict = {}
@@ -45,7 +58,10 @@ _SYNTH_LOCK = threading.Lock()
 _SYNTH_CACHE_MAX = 32
 
 #: wall-clock stages of decode_corpus, in pipeline order
-STAGES = ("front_end", "prepare", "h2d", "device", "d2h")
+STAGES = ("front_end", "prepare", "h2d", "device", "d2h", "unpack")
+
+#: config.s16_wire -> the fused body's output for output="s16"
+S16_FORMATS = {"dpack": "s16df", "planes": "s16p", "raw": "s16"}
 
 
 def _synthesizer_for(setup, channels: int) -> BatchSynthesizer:
@@ -248,6 +264,10 @@ def _scalar_fallback(source, output: str, clip_samples: bool, device):
     )
     r.initialize()
     pcm = r.read_all(planar=True)
+    if output == "s16":
+        return np.clip(
+            np.rint(pcm.astype(np.float64) * 32768.0), -32768, 32767
+        ).astype(np.int16)
     if output == "device":
         return torch.from_numpy(np.ascontiguousarray(pcm)).to(device)
     return pcm
@@ -255,11 +275,35 @@ def _scalar_fallback(source, output: str, clip_samples: bool, device):
 
 class CorpusOutputs(list):
     """decode_corpus's per-source outputs, in input order, plus ``stats``:
-    stream counts (streams, batched, scalar, failed), ``chunks``, and
-    ``stage_s``: host wall seconds per stage of STAGES (device and copy
-    stages end in a synchronize, so they include the device's time)."""
+    stream counts (streams, batched, scalar, failed), ``chunks``,
+    ``d2h_bytes`` (bytes copied device -> host), and ``stage_s``: host wall
+    seconds per stage of STAGES (device and copy stages end in a
+    synchronize, so they include the device's time)."""
 
     stats: dict
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """Copy ``t`` into pinned host memory (CUDA) or view it (CPU)."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
+def pull_dpack(wire: torch.Tensor, channels: int, out_len: int):
+    """The dpack wire's header and width table, then its payload at the
+    exact size -> (payload u8 [nbytes], widx, ch_ubit, bytes copied). The
+    header is checked against the width table before the payload moves."""
+    nbt = pcm_pack.wire_rows(out_len, channels)
+    head = pcm_pack.wire_header_bytes(channels) + nbt
+    h = _to_host(wire[:head])
+    nb, plane_cap, ch_ubit, widx = pcm_pack.parse_header(h, nbt, channels)
+    pcm_pack.check_sections(nb, plane_cap, ch_ubit, widx,
+                            wire.shape[0] - head)
+    payload = _to_host(wire[head : head + nb])
+    return payload, widx, ch_ubit, head + nb
 
 
 def decode_corpus(
@@ -277,16 +321,16 @@ def decode_corpus(
 
     ``device``: required ("cpu", "cuda", "cuda:N"); a CUDA request where
     CUDA is absent raises. ``output``: "f32" (numpy float32 on the host,
-    clipped per ``clip_samples``) or "device" (float32 tensors left on the
-    device, unclipped, as the reference leaves them). ``on_error``: "raise"
+    clipped per ``clip_samples``), "s16" (numpy int16 on the host,
+    quantized on the device and shipped over config.s16_wire: "dpack",
+    "planes" or "raw") or "device" (float32 tensors left on the device,
+    unclipped, as the reference leaves them). ``on_error``: "raise"
     propagates a malformed source's error; "none" leaves its slot None."""
     from vorbispizza_tpu.config import VorbisConfig
     from vorbispizza_tpu.errors import VorbisError
 
-    if output not in ("f32", "device"):
-        raise NotImplementedError(
-            f"output {output!r}: only 'f32' and 'device' are ported"
-        )
+    if output not in ("f32", "s16", "device"):
+        raise ValueError(f"output {output!r}: not 'f32', 's16' or 'device'")
     if on_error not in ("raise", "none"):
         raise ValueError(f"on_error must be 'raise' or 'none', got {on_error!r}")
     dev = resolve_device(device)
@@ -295,10 +339,17 @@ def decode_corpus(
         n_workers = cfg.corpus_workers
     if max_batch_bytes is None:
         max_batch_bytes = cfg.corpus_batch_bytes
+    fmt = "f32"
+    if output == "s16":
+        if cfg.s16_wire not in S16_FORMATS:
+            raise ValueError(f"s16_wire {cfg.s16_wire!r} (not one of "
+                             f"{list(S16_FORMATS)})")
+        fmt = S16_FORMATS[cfg.s16_wire]
 
     outs = CorpusOutputs([None] * len(sources))
     stats = {"streams": len(sources), "batched": 0, "scalar": 0, "failed": 0,
-             "chunks": 0, "stage_s": dict.fromkeys(STAGES, 0.0)}
+             "chunks": 0, "d2h_bytes": 0,
+             "stage_s": dict.fromkeys(STAGES, 0.0)}
     outs.stats = stats
     walls = stats["stage_s"]
 
@@ -345,14 +396,15 @@ def decode_corpus(
                 scalar(i)
             return
         try:
-            sig, host, total = synth.prepare_host(plan_m, buckets_m, "f32")
+            sig, host, total = synth.prepare_host(plan_m, buckets_m, fmt,
+                                                  device=dev)
             t1 = time.perf_counter()
             walls["prepare"] += t1 - t0
             bufs = [torch.from_numpy(a).to(dev) for a in host]
             sync()
             t2 = time.perf_counter()
             walls["h2d"] += t2 - t1
-            pcm = synth(sig, bufs)[:, :total]
+            out = synth(sig, bufs)
             sync()
             t3 = time.perf_counter()
             walls["device"] += t3 - t2
@@ -362,11 +414,31 @@ def decode_corpus(
             return
         stats["chunks"] += 1
         stats["batched"] += len(chunk)
-        if output == "f32":
-            pcm = pcm.cpu().numpy()
-            if clip_samples:
-                np.clip(pcm, -CLIP_MAX, CLIP_MAX, out=pcm)
-            walls["d2h"] += time.perf_counter() - t3
+        if output == "device":
+            pcm = out[:, :total]
+        elif fmt == "s16df":
+            payload, widx, ch_ubit, moved = pull_dpack(
+                out, synth.channels, sig[3])
+            stats["d2h_bytes"] += moved
+            t4 = time.perf_counter()
+            walls["d2h"] += t4 - t3
+            pcm = pcm_pack.unpack_pcm(payload, widx, synth.channels, sig[3],
+                                      ch_ubit)[:, :total]
+            walls["unpack"] += time.perf_counter() - t4
+        else:
+            host_out = _to_host(out[..., :total].contiguous())
+            stats["d2h_bytes"] += host_out.nbytes
+            t4 = time.perf_counter()
+            walls["d2h"] += t4 - t3
+            if fmt == "s16p":
+                # byte planes [2, C, L] u8 -> int16, losslessly
+                pcm = (((host_out[1].astype(np.int32) << 8) | host_out[0])
+                       - 32768).astype(np.int16)
+            else:
+                pcm = host_out
+                if fmt == "f32" and clip_samples:
+                    np.clip(pcm, -CLIP_MAX, CLIP_MAX, out=pcm)
+            walls["unpack"] += time.perf_counter() - t4
         c = 0
         for i, ln in zip(chunk, pcm_lengths):
             outs[i] = pcm[:, c : c + ln]

@@ -10,15 +10,18 @@ because the reference module imports jax, which the port's machines do
 not have.
 
 The DEVICE half (``BatchSynthesizer.forward``) does what the reference's
-fused XLA program (``_fused_body``) does for the symbol residue wire, the
-coded-ys floor1 wire and float32 output:
+fused XLA program (``_fused_body``) does for the symbol residue wire and
+the coded-ys floor1 wire, for every output of the reference:
 
     residue_sym.expand_submap (K1) -> floor.floor1_from_ys (K2)
     -> coupling.couple_spectrum (K3) -> imdct.dct_iv (torch.matmul)
-    -> ola.ola_assemble (K4, with the IMDCT epilogue folded in)
+    -> ola.ola_assemble (K4, with the IMDCT epilogue folded in; "f32"
+       PCM, or the s16 quantize in registers for "s16"/"s16p"/dpack)
+    -> for "s16d"/"s16df": pcm_pack.dpack_wire (K5 select, K6 header and
+       planes, K7 unary on a rice wire), one u8 wire buffer
 
 Not ported yet, and raising NotImplementedError: value-transport residues,
-the posts/step2 floor1 wire, floor0, and the s16 outputs and their wires.
+the posts/step2 floor1 wire and floor0.
 """
 
 from __future__ import annotations
@@ -44,7 +47,14 @@ from ..ops.coupling import couple_spectrum
 from ..ops.floor import floor1_from_ys, floor1_tables, inverse_db_tables
 from ..ops.imdct import dct_iv, dct_iv_basis
 from ..ops.ola import ola_assemble
+from ..ops.pcm_pack import dpack_wire, wire_caps, wire_rows
 from ..ops.residue_sym import expand_submap, pack_bits
+from ..utils.link import d2h_rate_estimate
+
+#: outputs of the fused body (models/pipeline.py _fused_body)
+OUTPUTS = ("f32", "s16", "s16p", "s16d", "s16df")
+#: the dpack wire outputs: soft ("s16d") and full ("s16df") capacity
+DPACK = ("s16d", "s16df")
 
 
 class OlaUnsupported(BatchUnsupported):
@@ -162,6 +172,23 @@ class BatchSynthesizer(nn.Module):
             info.n, info.left_start, info.left_end, info.right_start, info.right_end
         ).astype(np.float32)
         return mode.n, window, tuple(mapping.coupling_steps)
+
+    @staticmethod
+    def _resolve_rice(device="cpu") -> bool:
+        """Rice mode of the dpack wire (sig[6]): config.s16_rice "on"/"off",
+        or under "auto" whether the measured device->host rate
+        (utils/link.py; +inf for the CPU) is below
+        s16_rice_threshold_mbps."""
+        from vorbispizza_tpu.config import VorbisConfig
+
+        cfg = VorbisConfig.default
+        if cfg.s16_rice == "on":
+            return True
+        if cfg.s16_rice == "off":
+            return False
+        if cfg.s16_rice != "auto":
+            raise ValueError(f"s16_rice {cfg.s16_rice!r}: not on/off/auto")
+        return d2h_rate_estimate(device) < cfg.s16_rice_threshold_mbps * 1e6
 
     @staticmethod
     def _floor1_ys_ok(floor) -> bool:
@@ -502,15 +529,16 @@ class BatchSynthesizer(nn.Module):
         buckets: list[BucketBatch],
         output: str = "f32",
         pads: dict | None = None,
+        device="cpu",
     ):
         """Pack a merged chunk into the wire: returns (sig, host numpy
         arrays [f32, i32, i16, u8, ev_j, ev_da, ev_db, ev_va, ev_vb],
         total). ``pads`` forces padded dimensions and wire dtypes up to
-        given maxima (the reference's cross-shard signature unification)."""
-        if output in ("s16d", "s16df"):
-            raise NotImplementedError(
-                f"output {output!r}: the dpack wire is not ported"
-            )
+        given maxima (the reference's cross-shard signature unification).
+        ``device``: where the output will be pulled from, which sets the
+        dpack rice flag under s16_rice="auto"."""
+        if output not in OUTPUTS:
+            raise ValueError(f"output {output!r} (not one of {OUTPUTS})")
         metas_per = [self._group_meta(b, pads=pads) for b in buckets]
         packs = []
         padded_n = []
@@ -707,7 +735,8 @@ class BatchSynthesizer(nn.Module):
         seg_sig = ("ev", Ep)
         F_tab = 0
         # sig[6] is the dpack wire's rice flag: True for every other output
-        sig = (statics, tuple(padded_n), seg_sig, out_len, F_tab, output, True)
+        rice = self._resolve_rice(device) if output in DPACK else True
+        sig = (statics, tuple(padded_n), seg_sig, out_len, F_tab, output, rice)
         return sig, host_args, total
 
     # -- device half ------------------------------------------------------------
@@ -724,10 +753,8 @@ class BatchSynthesizer(nn.Module):
         """Per bucket of ``sig``: its key, metas, padded rows ``Fp``, ``n``,
         wire entry ``e``, padded_n record ``pn``, device ``tables`` and a
         ``take(slot)`` view into the device buffers ``bufs``."""
-        if sig[5] != "f32":
-            raise NotImplementedError(
-                f"output {sig[5]!r}: s16 quantize and its wires are not ported"
-            )
+        if sig[5] not in OUTPUTS:
+            raise ValueError(f"output {sig[5]!r} (not one of {OUTPUTS})")
         dev = bufs[0].device
         typed = dict(zip(("f32", "i32", "i16", "u8"), bufs[:4]))
 
@@ -828,9 +855,11 @@ class BatchSynthesizer(nn.Module):
 
     def forward(self, sig, bufs) -> torch.Tensor:
         """Device synthesis of one prepared chunk: ``bufs`` are the nine
-        host arrays of prepare_host as tensors on one device; returns PCM
-        [C, out_len] float32 on that device (the kept samples are the
-        first ``total`` columns)."""
+        host arrays of prepare_host as tensors on one device. Returns, on
+        that device, by output sig[5]: "f32" PCM [C, out_len] float32;
+        "s16" int16 [C, out_len]; "s16p" u8 [2, C, out_len]; "s16d" and
+        "s16df" the dpack wire, u8 (the kept samples are the first
+        ``total`` columns)."""
         ola_buckets = []
         for bk in self.buckets(sig, bufs):
             residues = self.place(bk, [
@@ -842,7 +871,13 @@ class BatchSynthesizer(nn.Module):
             ])
             spectra = couple_spectrum(residues, floors, bk["tables"]["steps"])
             ola_buckets.append(self.ola_bucket(bk, self.dct(bk, spectra)))
-        return ola_assemble(ola_buckets, bufs[4:9], sig[3])
+        output = sig[5]
+        mode = "s16" if output in DPACK else output
+        out = ola_assemble(ola_buckets, bufs[4:9], sig[3], mode)
+        if output not in DPACK:
+            return out
+        caps = wire_caps(wire_rows(sig[3], self.channels), output == "s16df")
+        return dpack_wire(out, *caps, rice=sig[6])
 
 
 def device_tables(synth: BatchSynthesizer, key, device) -> dict:

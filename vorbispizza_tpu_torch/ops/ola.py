@@ -11,6 +11,10 @@ events (models/pipeline.py ``_build_events``). ``expand_assemble`` is the
 reference's per-sample definition; ``ola_assemble_plain`` builds ``flat``
 with the IMDCT epilogue and applies it. Kernel K4 computes the same thing
 without materializing ``flat``.
+
+Output modes: "f32" (PCM), "s16" (quantized int16) and "s16p" (the s16
+byte planes, u8 [2, C, L]); K4 quantizes in registers, the twin applies
+ops.pcm_pack ``quantize_plain`` to its PCM.
 """
 
 from __future__ import annotations
@@ -21,9 +25,14 @@ import torch
 
 from ..kernels import build as K
 from .imdct import imdct_window
+from .pcm_pack import planes_plain, quantize_plain
 
 #: buckets the K4 parameter table holds (csrc/ola_assemble.cu)
 MAX_BUCKETS = 64
+
+#: output mode -> (K4 mode, launch count name)
+MODES = {"f32": (0, "ola_assemble"), "s16": (1, "ola_assemble_s16"),
+         "s16p": (2, "ola_assemble_s16p")}
 
 
 def gather_assemble(flat, a_idx, a_valid, b_idx, b_valid):
@@ -70,19 +79,26 @@ def flat_frames(buckets) -> torch.Tensor:
     return torch.cat(flats, dim=1)
 
 
-def ola_assemble_plain(buckets, evs, L: int) -> torch.Tensor:
-    """PCM [C, L] float32 (plain twin of K4)."""
-    return expand_assemble(flat_frames(buckets), evs, L)
+def ola_assemble_plain(buckets, evs, L: int, mode: str = "f32"):
+    """Plain twin of K4: PCM [C, L] float32, or its s16 [C, L] int16 or
+    s16p [2, C, L] u8 quantization."""
+    pcm = expand_assemble(flat_frames(buckets), evs, L)
+    if mode == "f32":
+        return pcm
+    q = quantize_plain(pcm)
+    return q.to(torch.int16) if mode == "s16" else planes_plain(q)
 
 
-def ola_assemble(buckets, evs, L: int) -> torch.Tensor:
+def ola_assemble(buckets, evs, L: int, mode: str = "f32") -> torch.Tensor:
     """``ola_assemble_plain`` for CPU tensors; kernel K4 for CUDA ones.
 
     ``evs``: (ev_j, ev_da, ev_db, ev_va, ev_vb) int32 [Ep], sorted by ev_j,
-    padding events at ev_j = L."""
+    padding events at ev_j = L. ``mode``: a key of MODES."""
+    if mode not in MODES:
+        raise ValueError(f"K4 output mode {mode!r} (not one of {list(MODES)})")
     d0 = buckets[0][0]
     if d0.device.type == "cpu":
-        return ola_assemble_plain(buckets, evs, L)
+        return ola_assemble_plain(buckets, evs, L, mode)
     if len(buckets) > MAX_BUCKETS:
         raise ValueError(f"{len(buckets)} buckets (K4 holds {MAX_BUCKETS})")
     C = d0.shape[1]
@@ -105,12 +121,17 @@ def ola_assemble(buckets, evs, L: int) -> torch.Tensor:
                  final.data_ptr(), base, 2 * m]
         base += Fp * 2 * m
     desc = (ctypes.c_int64 * len(rows))(*rows)
-    out = torch.empty((C, L), dtype=torch.float32, device=d0.device)
+    kmode, count = MODES[mode]
+    if mode == "s16p":
+        out = torch.empty((2, C, L), dtype=torch.uint8, device=d0.device)
+    else:
+        dtype = torch.float32 if mode == "f32" else torch.int16
+        out = torch.empty((C, L), dtype=dtype, device=d0.device)
     if out.numel():
         K.launch(
             "ola_assemble",
             ctypes.addressof(desc), ev_j.data_ptr(), da.data_ptr(),
             db.data_ptr(), va.data_ptr(), vb.data_ptr(), out.data_ptr(),
-            len(buckets), ev_j.shape[0], L, C, base,
+            len(buckets), ev_j.shape[0], L, C, base, kmode, count=count,
         )
     return out
