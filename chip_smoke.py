@@ -4,37 +4,52 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
-the CUDA toolkit and PyTorch built for CUDA. It imports nothing of JAX.
-Phases, each printed as it runs:
+the CUDA toolkit and PyTorch built for CUDA. It imports nothing of JAX and
+nothing of the JAX package: the float64 anchor is the port's own
+``reader.VorbisReader``. Phases, each printed as it runs:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
    whether the C++ host front end is native;
 2. the kernel build (nvcc, sm_90a) and its time;
-3. each kernel against its plain PyTorch twin on the card, on the inputs
-   of the committed corpus's first merged chunk: bit-equality, both times.
-   K1-K4 on the chunk prepared as "f32"; then the chunk prepared as
-   "s16df": K4's s16 and s16p modes, and on K4's q the dpack kernels K5
-   (select), K6 (header and planes) and K7 (unary) in both rice modes,
-   each output compared with ``torch.equal`` (the wire's header, widx,
-   ch_ubit and payload bytes below nbytes);
-4. the paths, each driven with the launch counts set to 0 just before it
-   and read just after, over the committed 32 x 15 s stereo corpus
-   (testdata/corpus32), none routing a stream to the scalar decoder:
-   ``decode_corpus(corpus, device="cuda", output="f32")``, every stream
-   within 1e-6 max-abs of the float64 scalar anchor; then the main path
-   ``output="s16"`` under the default config (dpack wire, rice resolved
-   from the measured link rate), every stream bit-equal to the host
-   quantization of this card's f32 output and within 1 LSB of the
-   quantized anchor; then ``s16_rice="on"`` (K7), ``s16_wire="raw"`` and
-   ``s16_wire="planes"`` (K4's s16p mode), each giving identical int16;
-5. one warm and three timed runs each of f32 and s16: realtime factor,
-   stage walls and device->host bytes.
+3. each kernel against its plain PyTorch twin on the card, at the shapes
+   of the first merged chunk of its path, with the bound of its work
+   (bytes over 3.35 TB/s or operations over 67 TFLOP/s, counted from this
+   run's inputs). K1-K4 on the committed corpus's chunk
+   prepared as "f32"; K4's s16/s16p modes and K5 (select), K6 (header and
+   planes) and K7 (unary) in both rice modes on it prepared as "s16df";
+   K2's posts mode and K9 (value residues) on it prepared under the
+   fallback config (floor1_wire="posts", residue_transport="values");
+   K8 (floor0) on the floor0 corpus's chunk. All are held with
+   ``torch.equal`` (K8's twin takes K8's steps in K8's order, with the
+   card's own cos/sqrt/exp; on a miss its max ulp distance and the share
+   of values that differ are printed);
+4. the paths, each driven through ``decode_corpus(..., device="cuda")``
+   with the launch counts set to 0 just before it and read just after,
+   none routing a stream to the scalar decoder. On the committed 32 x 15 s
+   stereo corpus (testdata/corpus32): "f32", every stream within 1e-6
+   max-abs of the float64 anchor; the main path "s16" (dpack wire, rice
+   resolved from the measured link rate), bit-equal to the host
+   quantization of this card's f32 and within 1 LSB of the quantized
+   anchor; ``s16_rice="on"`` (K7), ``s16_wire="raw"`` and "planes" (K4's
+   s16p mode), identical int16; under the fallback config "f32" bit-equal
+   to the default f32 and "s16" identical int16. On the floor0 corpus (32
+   x 15 s mono floor0 streams, testing/floor0_32): "f32" against the
+   anchor (max-abs printed), "s16" equal to the host quantization of the
+   card's f32 with at most 1e-3 of each stream's samples over 2 LSB from
+   the quantized anchor, and "f32" under residue_transport="values" (K9)
+   bit-equal to the symbol wire's;
+5. once the CPU workers of phases 3-4 have stopped: each kernel's time,
+   its twin's and, where one PyTorch call computes the same function,
+   that call's (CUDA events, at phase 3's inputs); then one warm and
+   three timed runs each of the default f32 and s16, the fallback s16 and
+   the floor0 f32: realtime factor, stage walls and device->host bytes.
 
 Any failure raises (exit code 1). Without CUDA, or without the package
 beside it, it exits 2 and prints no result. The last two lines are the
 kernel table and ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -44,6 +59,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 ANCHOR_TOL = 1e-6
 S16_TOL = 1  # LSB against the quantized float64 anchor
+FLOOR0_LSB = 2  # floor0 s16: at most FLOOR0_SHARE of a stream's samples
+FLOOR0_SHARE = 1e-3  # more than FLOOR0_LSB off the quantized anchor
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+FP32_OPS_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+FALLBACK = {"floor1_wire": "posts", "residue_transport": "values"}
 KERNELS = {
     # name: (source, reference stage it replaces, run its launches are
     # read from, launch-count key)
@@ -52,6 +72,9 @@ KERNELS = {
                        "residue_expand"),
     "floor1_synth": ("vorbispizza_tpu_torch/csrc/floor1_synth.cu",
                      "vorbispizza_tpu/ops/floor.py:119", "s16", "floor1_synth"),
+    "floor1_posts": ("vorbispizza_tpu_torch/csrc/floor1_synth.cu",
+                     "vorbispizza_tpu/models/pipeline.py:737", "fallback_s16",
+                     "floor1_posts"),
     "couple_spectrum": ("vorbispizza_tpu_torch/csrc/couple_spectrum.cu",
                         "vorbispizza_tpu/ops/coupling.py:14", "s16",
                         "couple_spectrum"),
@@ -66,6 +89,12 @@ KERNELS = {
     "dpack_unary": ("vorbispizza_tpu_torch/csrc/dpack_unary.cu",
                     "vorbispizza_tpu/ops/pcm_pack.py:442", "rice",
                     "dpack_unary"),
+    "floor0_synth": ("vorbispizza_tpu_torch/csrc/floor0_synth.cu",
+                     "vorbispizza_tpu/ops/floor.py:201", "floor0_s16",
+                     "floor0_synth"),
+    "residue_gather": ("vorbispizza_tpu_torch/csrc/residue_gather.cu",
+                       "vorbispizza_tpu/models/pipeline.py:789",
+                       "fallback_s16", "residue_gather"),
 }
 #: K4's output modes: (reference stage, run, launch-count key)
 K4_MODES = {
@@ -75,25 +104,50 @@ K4_MODES = {
     "s16p": ("vorbispizza_tpu/models/pipeline.py:878", "planes",
              "ola_assemble_s16p"),
 }
+_S16_PATH = ("couple_spectrum", "ola_assemble_s16", "dpack_select",
+             "dpack_pack")
 #: launch counts each run must show (the kernels on its path)
 RUN_KERNELS = {
     "f32": ("residue_expand", "floor1_synth", "couple_spectrum",
             "ola_assemble"),
-    "s16": ("residue_expand", "floor1_synth", "couple_spectrum",
-            "ola_assemble_s16", "dpack_select", "dpack_pack"),
+    "s16": ("residue_expand", "floor1_synth") + _S16_PATH,
     "rice": ("ola_assemble_s16", "dpack_select", "dpack_pack", "dpack_unary"),
     "raw": ("ola_assemble_s16",),
     "planes": ("ola_assemble_s16p",),
+    "fallback_f32": ("residue_gather", "floor1_posts", "couple_spectrum",
+                     "ola_assemble"),
+    "fallback_s16": ("residue_gather", "floor1_posts") + _S16_PATH,
+    "floor0_f32": ("residue_expand", "floor0_synth", "couple_spectrum",
+                   "ola_assemble"),
+    "floor0_s16": ("residue_expand", "floor0_synth") + _S16_PATH,
+    "floor0_values": ("residue_gather", "floor0_synth", "couple_spectrum",
+                      "ola_assemble"),
 }
 
 
 def _anchor(data: bytes):
     """float64 scalar decode of one stream (runs in a worker process)."""
-    from vorbispizza_tpu.reader import VorbisReader
+    from vorbispizza_tpu_torch.reader import VorbisReader
 
     r = VorbisReader(data)
     r.initialize()
     return r.read_all(planar=True)
+
+
+@contextlib.contextmanager
+def configured(**settings):
+    """The port's VorbisConfig.default with ``settings``, restored after."""
+    from vorbispizza_tpu_torch.config import VorbisConfig
+
+    cfg = VorbisConfig.default
+    saved = {k: getattr(cfg, k) for k in settings}
+    try:
+        for k, v in settings.items():
+            setattr(cfg, k, v)
+        yield cfg
+    finally:
+        for k, v in saved.items():
+            setattr(cfg, k, v)
 
 
 def _cuda_ms(fn, reps: int = 20) -> float:
@@ -112,10 +166,30 @@ def _cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _compare(name, kernel_fn, plain_fn, view_k=None, view_p=None):
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _bound(in_bytes: int, out_bytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the operations over the float32 rate."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_S * 1e3
+    t_ops = ops / FP32_OPS_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": in_bytes + out_bytes, "ops": ops}
+
+
+def _compare(name, kernel_fn, plain_fn, inputs, ops, view_k=None,
+             view_p=None, library_fn=None, check=None):
     """Run both on the same inputs; assert bit-equality of their outputs
-    (``view_k``/``view_p`` map a run's result to its list of compared
-    tensors); time both."""
+    (or ``check(got, want)``, which returns a note); bound the work from
+    ``inputs``, the compared outputs and ``ops`` (a function of the
+    outputs). The result keeps the functions to time (``_time`` times
+    them once the CPU workers have stopped: host contention stretches the
+    launch gaps of these small kernels)."""
     import torch
 
     got, want = kernel_fn(), plain_fn()
@@ -127,19 +201,42 @@ def _compare(name, kernel_fn, plain_fn, view_k=None, view_p=None):
         if g.shape != w.shape:
             raise AssertionError(f"{name}: shape {g.shape} != {w.shape}")
         err = max(err, (g.double() - w.double()).abs().max().item())
-        if not torch.equal(g, w):
-            raise AssertionError(f"{name}: kernel differs from its twin "
-                                 f"(max abs {err})")
-    ms, plain_ms = _cuda_ms(kernel_fn), _cuda_ms(plain_fn)
-    print(f"  {name}: bit-equal to its twin over {len(got)} outputs; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    if check is None:
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: kernel differs from its twin "
+                                     f"(max abs {err})")
+        note = "bit-equal to its twin"
+    else:
+        note = check(got, want)
+    res = {"max_abs_err": err, "name": name,
+           "fns": (kernel_fn, plain_fn, library_fn),
+           **_bound(_nbytes(inputs), _nbytes(got), ops(got))}
+    print(f"  {name}: {note} over {len(got)} outputs; bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']} ({res['bytes']} B, "
+          f"{res['ops']} ops)", flush=True)
+    return res
+
+
+def _time(res) -> None:
+    """Time a ``_compare`` result's kernel, twin and library call."""
+    kernel_fn, plain_fn, library_fn = res.pop("fns")
+    res["ms"], res["plain_ms"] = _cuda_ms(kernel_fn), _cuda_ms(plain_fn)
+    res["library_ms"] = _cuda_ms(library_fn) if library_fn else None
+    lib = (f", library {res['library_ms']:.4f} ms" if library_fn else "")
+    print(f"  {res['name']}: kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms{lib}; bound {res['bound_ms']:.4f} ms",
+          flush=True)
+
+
+def _numel(outs) -> int:
+    return sum(o.numel() for o in outs)
 
 
 def _first_chunk(corpus, output="f32"):
-    """The first merged chunk decode_corpus forms from ``corpus``, prepared
-    for ``output``."""
-    from vorbispizza_tpu.config import VorbisConfig
+    """The first merged chunk decode_corpus forms from ``corpus`` under the
+    current config, prepared for ``output``."""
+    from vorbispizza_tpu_torch.config import VorbisConfig
     from vorbispizza_tpu_torch.models.corpus import (
         _front_end,
         _synthesizer_for,
@@ -160,39 +257,55 @@ def _first_chunk(corpus, output="f32"):
     return synth, sig, host, len(fronts)
 
 
-def check_kernels(corpus, dev):
-    """Phase 3: every kernel against its twin at the first chunk's shapes."""
+def _chunk(corpus, dev, output="f32", **settings):
+    """(synth, sig, device buffers, buckets) of the first chunk."""
     import torch
 
-    from vorbispizza_tpu_torch.ops import coupling, floor, ola, residue_sym
-
-    synth, sig, host, n_streams = _first_chunk(corpus)
+    with configured(**settings):
+        synth, sig, host, n_streams = _first_chunk(corpus, output)
     bufs = [torch.from_numpy(a).to(dev) for a in host]
     bks = synth.buckets(sig, bufs)
-    print(f"  first chunk: {n_streams} streams, {len(bks)} buckets, "
-          f"out_len {sig[3]}, rows " + ", ".join(
-              f"{bk['Fp']}x{bk['n']}" for bk in bks), flush=True)
-    res_calls = [c for bk in bks for c in synth.residue_calls(bk)
-                 if c[1] is not None]
-    flo_calls = [c for bk in bks for c in synth.floor_calls(bk)]
+    print(f"  first chunk ({output}{', ' + str(settings) if settings else ''}"
+          f"): {n_streams} streams, {len(bks)} buckets, out_len {sig[3]}, "
+          f"rows " + ", ".join(f"{bk['Fp']}x{bk['n']}" for bk in bks),
+          flush=True)
+    return synth, sig, bufs, bks
+
+
+def check_kernels(corpus, dev):
+    """Phase 3: K1-K4 at the first chunk's shapes."""
+    from vorbispizza_tpu_torch.ops import coupling, floor, ola, residue_sym
+
+    synth, sig, bufs, bks = _chunk(corpus, dev)
+    res_calls = [a for bk in bks for _, a in synth.residue_calls(bk)
+                 if a is not None]
+    flo_calls = [a for bk in bks for _, w, a in synth.floor_calls(bk)]
     out = {}
     out["residue_expand"] = _compare(
         "residue_expand",
-        lambda: [residue_sym.expand_submap(*a) for _, a in res_calls],
-        lambda: [residue_sym.expand_submap_plain(*a[:5]) for _, a in res_calls],
+        lambda: [residue_sym.expand_submap(*a) for a in res_calls],
+        lambda: [residue_sym.expand_submap_plain(*a[:5]) for a in res_calls],
+        inputs=[t for a in res_calls for t in (*a[1], *a[2], *a[3])],
+        ops=lambda _: sum(g[4] * g[2] * g[1] for a in res_calls
+                          for g in a[0][7]),
     )
     out["floor1_synth"] = _compare(
         "floor1_synth",
-        lambda: [floor.floor1_from_ys(*a) for _, a in flo_calls],
-        lambda: [floor.floor1_from_ys_plain(*a) for _, a in flo_calls],
+        lambda: [floor.floor1_from_ys(*a) for a in flo_calls],
+        lambda: [floor.floor1_from_ys_plain(*a) for a in flo_calls],
+        inputs=[t for a in flo_calls for t in a[:6]],
+        ops=lambda o: 8 * _numel(o),
     )
-    stage = [(bk, *_stage_inputs(synth, bk), bk["tables"]["steps"])
+    stage = [(bk, synth.residues(bk), synth.floors(bk), bk["tables"]["steps"])
              for bk in bks]
     out["couple_spectrum"] = _compare(
         "couple_spectrum",
         lambda: [coupling.couple_spectrum(r, f, s) for _, r, f, s in stage],
         lambda: [coupling.couple_spectrum_plain(r, f, s)
                  for _, r, f, s in stage],
+        inputs=[t for _, r, f, s in stage for t in (r, f, s)],
+        ops=lambda o: sum(r.numel() * (1 + s.shape[0])
+                          for _, r, _f, s in stage),
     )
     ola_bks = [
         synth.ola_bucket(bk, synth.dct(bk, coupling.couple_spectrum(r, f, s)))
@@ -203,6 +316,8 @@ def check_kernels(corpus, dev):
         "ola_assemble",
         lambda: [ola.ola_assemble(ola_bks, evs, sig[3])],
         lambda: [ola.ola_assemble_plain(ola_bks, evs, sig[3])],
+        inputs=[t for b in ola_bks for t in b] + list(evs),
+        ops=lambda o: 3 * _numel(o),
     )
     out.update(check_s16_kernels(corpus, dev))
     return out
@@ -211,88 +326,170 @@ def check_kernels(corpus, dev):
 def check_s16_kernels(corpus, dev):
     """Phase 3, s16: K4's s16/s16p modes and K5-K7 on the first chunk
     prepared as "s16df" (full-capacity dpack wire)."""
-    import torch
-
     from vorbispizza_tpu_torch.ops import coupling, ola
     from vorbispizza_tpu_torch.ops import pcm_pack as pp
 
-    synth, sig, host, _ = _first_chunk(corpus, "s16df")
-    bufs = [torch.from_numpy(a).to(dev) for a in host]
+    synth, sig, bufs, bks = _chunk(corpus, dev, "s16df")
     obks = []
-    for bk in synth.buckets(sig, bufs):
-        res, flo = _stage_inputs(synth, bk)
-        spectra = coupling.couple_spectrum(res, flo, bk["tables"]["steps"])
+    for bk in bks:
+        spectra = coupling.couple_spectrum(synth.residues(bk), synth.floors(bk),
+                                           bk["tables"]["steps"])
         obks.append(synth.ola_bucket(bk, synth.dct(bk, spectra)))
     evs, L, C = bufs[4:9], sig[3], synth.channels
+    ola_in = [t for b in obks for t in b] + list(evs)
     out = {}
     for mode in ("s16", "s16p"):
         out["ola_assemble_" + mode] = _compare(
             "ola_assemble_" + mode,
             lambda m=mode: [ola.ola_assemble(obks, evs, L, m)],
             lambda m=mode: [ola.ola_assemble_plain(obks, evs, L, m)],
+            inputs=ola_in, ops=lambda o: 4 * C * L,
         )
     q = ola.ola_assemble(obks, evs, L, "s16")
-    nbt = pp.wire_rows(L, C)
-    hdr = pp.wire_header_bytes(C)
-    cap, ucap, urow = pp.wire_caps(nbt, True)
-    print(f"  dpack wire: C {C}, L {L}, NBt {nbt}, caps {cap} groups, "
-          f"{ucap} unary words, row {urow}", flush=True)
+    print(f"  dpack wire: C {C}, L {L}, NBt {pp.wire_rows(L, C)}", flush=True)
     for rice in (False, True):
-        tag = " (rice)" if rice else " (width-only)"
-        wire = torch.empty(pp.wire_bytes(C, nbt, cap, ucap, rice),
-                           dtype=torch.uint8, device=dev)
-        wview = wire[hdr : hdr + nbt]
-        r = _compare(
-            "dpack_select" + tag,
-            lambda: list(pp.dpack_select(q, rice, out=wview)),
-            lambda: list(pp.dpack_select_plain(q, rice)),
-        )
-        if not rice:
-            out["dpack_select"] = r
-        wbyte, ubits = pp.dpack_select(q, rice, out=wview)
-        scan = pp.dpack_scan(wbyte, ubits, urow, rice)
-        nb_plane = 16 * int(scan["gcum"][-1])
-        n_k6 = hdr + nbt + min(nb_plane, 16 * cap)
-        r = _compare(
-            "dpack_pack" + tag,
-            lambda: pp.dpack_pack(q, wire, scan, cap, rice),
-            lambda: pp.dpack_pack_plain(q, wbyte, scan, cap, rice),
-            view_k=lambda _: [wire[:n_k6]],
-            view_p=lambda w: [w[:n_k6]],
-        )
-        if not rice:
-            out["dpack_pack"] = r
-        if rice:
-            ub = min(4 * int(scan["ucum"][-1]), 4 * ucap)
-            start = hdr + nbt + min(nb_plane, 16 * cap)
-            out["dpack_unary"] = _compare(
-                "dpack_unary" + tag,
-                lambda: pp.dpack_unary(q, wire, scan, cap, ucap, urow),
-                lambda: pp.dpack_unary_plain(q, wbyte, ucap, urow),
-                view_k=lambda _: [wire[start : start + ub]],
-                view_p=lambda u: [u[:ub]],
-            )
-        # the composed wrapper against the composed twin, below nbytes
-        wk = pp.dpack_wire(q, cap, ucap, urow, rice)
-        wp = pp.dpack_wire_plain(q, cap, ucap, urow, rice)
-        nb = int(wk[:4].cpu().numpy().view("<i4")[0])
-        if not torch.equal(wk[: hdr + nbt + nb], wp[: hdr + nbt + nb]):
-            raise AssertionError(f"dpack_wire{tag}: kernels differ from twin")
-        print(f"  dpack_wire{tag}: {nb} payload bytes "
-              f"({nb / (2 * C * L):.4f} of raw s16), equal to the twin",
-              flush=True)
+        out.update(_check_dpack(q, rice, dev))
     return out
 
 
-def _stage_inputs(synth, bk):
-    from vorbispizza_tpu_torch.ops import floor, residue_sym
+def _check_dpack(q, rice, dev):
+    """K5, K6 and (rice) K7 on the card's q, then the composed wrapper
+    against the composed twin, below nbytes (full-capacity wire). A
+    function of its own per rice mode, so the kept closures bind this
+    mode's buffers."""
+    import torch
 
-    res = synth.place(bk, [
-        (ch, None if a is None else residue_sym.expand_submap(*a))
-        for ch, a in synth.residue_calls(bk)])
-    flo = synth.place(bk, [
-        (ch, floor.floor1_from_ys(*a)) for ch, a in synth.floor_calls(bk)])
-    return res, flo
+    from vorbispizza_tpu_torch.ops import pcm_pack as pp
+
+    C, L = q.shape
+    nbt = pp.wire_rows(L, C)
+    hdr = pp.wire_header_bytes(C)
+    cap, ucap, urow = pp.wire_caps(nbt, True)
+    tag, key = (" (rice)", "_rice") if rice else (" (width-only)", "")
+    wire = torch.empty(pp.wire_bytes(C, nbt, cap, ucap, rice),
+                       dtype=torch.uint8, device=dev)
+    wview = wire[hdr : hdr + nbt]
+    out = {}
+    out["dpack_select" + key] = _compare(
+        "dpack_select" + tag,
+        lambda: list(pp.dpack_select(q, rice, out=wview)),
+        lambda: list(pp.dpack_select_plain(q, rice)),
+        inputs=[q], ops=lambda _: 32 * q.numel(),
+    )
+    wbyte, ubits = pp.dpack_select(q, rice, out=wview)
+    scan = pp.dpack_scan(wbyte, ubits, urow, rice)
+    nb_plane = 16 * int(scan["gcum"][-1])
+    n_k6 = hdr + nbt + min(nb_plane, 16 * cap)
+    out["dpack_pack" + key] = _compare(
+        "dpack_pack" + tag,
+        lambda: pp.dpack_pack(q, wire, scan, cap, rice),
+        lambda: pp.dpack_pack_plain(q, wbyte, scan, cap, rice),
+        inputs=[q, wbyte, *scan.values()], ops=lambda _: 8 * q.numel(),
+        view_k=lambda _: [wire[:n_k6]],
+        view_p=lambda w: [w[:n_k6]],
+    )
+    if rice:
+        ub = min(4 * int(scan["ucum"][-1]), 4 * ucap)
+        out["dpack_unary"] = _compare(
+            "dpack_unary" + tag,
+            lambda: pp.dpack_unary(q, wire, scan, cap, ucap, urow),
+            lambda: pp.dpack_unary_plain(q, wbyte, ucap, urow),
+            inputs=[q, wbyte, *scan.values()],
+            ops=lambda _: 8 * q.numel(),
+            view_k=lambda _: [wire[n_k6 : n_k6 + ub]],
+            view_p=lambda u: [u[:ub]],
+        )
+    wk = pp.dpack_wire(q, cap, ucap, urow, rice)
+    wp = pp.dpack_wire_plain(q, cap, ucap, urow, rice)
+    nb = int(wk[:4].cpu().numpy().view("<i4")[0])
+    if not torch.equal(wk[: hdr + nbt + nb], wp[: hdr + nbt + nb]):
+        raise AssertionError(f"dpack_wire{tag}: kernels differ from twin")
+    print(f"  dpack_wire{tag}: {nb} payload bytes "
+          f"({nb / (2 * C * L):.4f} of raw s16), equal to the twin",
+          flush=True)
+    return out
+
+
+def check_fallback_kernels(corpus, dev):
+    """Phase 3, fallback wires: K2's posts mode and K9 on the first chunk
+    prepared under the fallback config."""
+    import torch
+
+    from vorbispizza_tpu_torch.ops import floor
+    from vorbispizza_tpu_torch.ops import residue_values as rv
+
+    synth, sig, bufs, bks = _chunk(corpus, dev, **FALLBACK)
+    posts = [a for bk in bks for _, w, a in synth.floor_calls(bk)
+             if w == "posts"]
+    vals = [synth.value_call(bk) for bk in bks]
+    if not posts or None in vals:
+        raise AssertionError("the fallback chunk is not on the posts and "
+                             "value wires")
+    print("  value wire tags: " + ", ".join(
+        f"{a[2]}/{a[3]} Kp {a[0].shape[0]}" for a in vals), flush=True)
+    out = {}
+    out["floor1_posts"] = _compare(
+        "floor1_posts",
+        lambda: [floor.floor1_from_posts(*a) for a in posts],
+        lambda: [floor.floor1_from_posts_plain(*a) for a in posts],
+        inputs=[t for a in posts for t in a[:5]],
+        ops=lambda o: 8 * _numel(o),
+    )
+    idx = [rv.row_index(a[1], a[3]) for a in vals]
+    out["residue_gather"] = _compare(
+        "residue_gather",
+        lambda: [rv.residue_gather(*a) for a in vals],
+        lambda: [rv.residue_gather_plain(*a) for a in vals],
+        inputs=[t for a in vals for t in a[:2]],
+        ops=_numel,
+        library_fn=lambda: [torch.index_select(a[0], 0, i)
+                            for a, i in zip(vals, idx)],
+    )
+    return out
+
+
+def _floor0_check(got, want):
+    """K8 against its twin: finite and bit-equal, on every bin; a miss
+    names the max ulp distance and the share of values that differ."""
+    import torch
+
+    ulp, differ, n = 0, 0, 0
+    for g, w in zip(got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError("floor0_synth: non-finite curve values")
+        d = (g.view(torch.int32).long() - w.view(torch.int32).long()).abs()
+        ulp = max(ulp, int(d.max().item()) if d.numel() else 0)
+        differ += int((g != w).sum().item())
+        n += g.numel()
+    if differ:
+        raise AssertionError(f"floor0_synth: {differ / n:.3e} of its values "
+                             f"differ from its twin's, by up to {ulp} ulp")
+    return "finite and bit-equal to its twin (0 ulp)"
+
+
+def check_floor0_kernel(corpus, dev):
+    """Phase 3, floor0: K8 on the floor0 corpus's first chunk."""
+    from vorbispizza_tpu_torch.ops import floor
+
+    synth, sig, bufs, bks = _chunk(corpus, dev)
+    calls = [a for bk in bks for _, w, a in synth.floor_calls(bk)
+             if w == "floor0"]
+    if not calls:
+        raise AssertionError("the floor0 chunk has no floor0 group")
+    return {"floor0_synth": _compare(
+        "floor0_synth",
+        lambda: [floor.floor0_curves(*a) for a in calls],
+        lambda: [floor.floor0_curves_plain(*a) for a in calls],
+        inputs=[t for a in calls for t in a[:4]],
+        ops=lambda o: sum(a[2].numel() * a[3].shape[1] * (4 * a[4] + 8)
+                          for a in calls),
+        check=_floor0_check,
+    )}
+
+
+def _quantize(pcm, np):
+    return np.clip(np.rint(pcm * np.float32(32768.0)), -32768,
+                   32767).astype(np.int16)
 
 
 def main() -> int:
@@ -311,19 +508,21 @@ def main() -> int:
 
     import numpy as np
 
-    from vorbispizza_tpu import native
-    from vorbispizza_tpu_torch import decode_corpus, kernels
+    from vorbispizza_tpu_torch import decode_corpus, kernels, native
     from vorbispizza_tpu_torch.kernels import build
+    from vorbispizza_tpu_torch.testing import floor0_32
     from vorbispizza_tpu_torch.testing.corpus32 import audio_seconds, load_corpus
 
     corpus = load_corpus()
-    # the float64 anchors decode on CPU workers while the card works
-    anchor_pool = cf.ProcessPoolExecutor(
+    # the floor0 corpus and the float64 anchors are made on CPU workers
+    # while the card works
+    pool = cf.ProcessPoolExecutor(
         max_workers=min(8, os.cpu_count() or 1),
         mp_context=mp.get_context("spawn"),
     )
     try:
-        anchor_futs = [anchor_pool.submit(_anchor, d) for d in corpus]
+        f0_futs = floor0_32.submit(pool)
+        anchor_futs = [pool.submit(_anchor, d) for d in corpus]
 
         # -- phase 1: card, versions, host front end
         smi = subprocess.run(
@@ -359,18 +558,27 @@ def main() -> int:
 
         resolve_device(dev)
         checks = check_kernels(corpus, dev)
+        checks.update(check_fallback_kernels(corpus, dev))
+        t0 = time.perf_counter()
+        f0_corpus = floor0_32.collect(f0_futs)
+        print(f"  floor0 corpus: {len(f0_corpus)} streams, "
+              f"{sum(map(len, f0_corpus))} B, sha256s match (waited "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        f0_anchor_futs = [pool.submit(_anchor, d) for d in f0_corpus]
+        checks.update(check_floor0_kernel(f0_corpus, dev))
 
         # -- phase 4: the paths, each with fresh launch counts
-        from vorbispizza_tpu.config import VorbisConfig
+        from vorbispizza_tpu_torch.config import VorbisConfig
         from vorbispizza_tpu_torch.models.pipeline import BatchSynthesizer
         from vorbispizza_tpu_torch.utils import link
 
         runs = {}
 
-        def run(name, output):
-            kernels.reset_counts()
-            outs = decode_corpus(corpus, device="cuda", output=output)
-            runs[name] = dict(kernels.COUNTS)
+        def run(name, output, sources=corpus, **settings):
+            with configured(**settings):
+                kernels.reset_counts()
+                outs = decode_corpus(sources, device="cuda", output=output)
+                runs[name] = dict(kernels.COUNTS)
             stats = outs.stats
             print(f"  [{name}] launches {runs[name]}; stats "
                   f"{json.dumps(stats)}", flush=True)
@@ -378,9 +586,16 @@ def main() -> int:
             if missing:
                 raise AssertionError(f"{name}: kernels never launched: "
                                      f"{missing}")
-            if stats["scalar"] or stats["batched"] != len(corpus):
+            if stats["scalar"] or stats["batched"] != len(sources):
                 raise AssertionError(f"streams left the batch path: {stats}")
             return outs
+
+        def same(name, outs, ref, what):
+            if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                       for a, b in zip(outs, ref)):
+                raise AssertionError(f"{name}: output differs from {what}")
+            print(f"  identical to {what}; d2h {outs.stats['d2h_bytes']} B",
+                  flush=True)
 
         print("phase 4: decode_corpus(corpus, device='cuda', output='f32')",
               flush=True)
@@ -408,9 +623,8 @@ def main() -> int:
         s16 = run("s16", "s16")
         lsb = 0
         for i, (got, pcm, ref) in enumerate(zip(s16, f32, anchors)):
-            host_q = np.clip(np.rint(pcm * np.float32(32768.0)),
-                             -32768, 32767).astype(np.int16)
-            if got.dtype != np.int16 or not np.array_equal(got, host_q):
+            if got.dtype != np.int16 or not np.array_equal(got,
+                                                           _quantize(pcm, np)):
                 raise AssertionError(f"stream {i}: s16 differs from the host "
                                      "quantization of this card's f32")
             ref_q = np.clip(np.rint(ref * 32768.0), -32768, 32767)
@@ -420,50 +634,102 @@ def main() -> int:
               f"(limit {S16_TOL})", flush=True)
         if lsb > S16_TOL:
             raise AssertionError(f"s16 off the anchor by {lsb} LSB")
-        saved = (cfg.s16_wire, cfg.s16_rice)
-        try:
-            for name, wire, rice_mode in (("rice", "dpack", "on"),
-                                          ("raw", "raw", saved[1]),
-                                          ("planes", "planes", saved[1])):
-                cfg.s16_wire, cfg.s16_rice = wire, rice_mode
-                print(f"phase 4: output='s16', s16_wire={wire!r}, "
-                      f"s16_rice={rice_mode!r}", flush=True)
-                outs = run(name, "s16")
-                if not all(np.array_equal(a, b) for a, b in zip(outs, s16)):
-                    raise AssertionError(f"{name}: int16 differs from the "
-                                         "default wire's")
-                print(f"  identical int16 to the default wire; d2h "
-                      f"{outs.stats['d2h_bytes']} B", flush=True)
-        finally:
-            cfg.s16_wire, cfg.s16_rice = saved
-    finally:
-        anchor_pool.shutdown(wait=True, cancel_futures=True)
+        for name, wire, rice_mode in (("rice", "dpack", "on"),
+                                      ("raw", "raw", cfg.s16_rice),
+                                      ("planes", "planes", cfg.s16_rice)):
+            print(f"phase 4: output='s16', s16_wire={wire!r}, "
+                  f"s16_rice={rice_mode!r}", flush=True)
+            same(name, run(name, "s16", s16_wire=wire, s16_rice=rice_mode),
+                 s16, "the default wire's int16")
 
-    # -- phase 5: throughput
-    for output in ("f32", "s16"):
-        print(f"phase 5: output={output!r}: one warm run, three timed runs",
-              flush=True)
-        decode_corpus(corpus, device="cuda", output=output)
-        rtfs = []
-        for rep in range(3):
-            t0 = time.perf_counter()
-            o = decode_corpus(corpus, device="cuda", output=output)
-            wall = time.perf_counter() - t0
-            rtfs.append(audio_seconds() / wall)
-            print(f"  run {rep}: {wall:.4f} s, {rtfs[-1]:.1f}x realtime; "
-                  f"d2h {o.stats['d2h_bytes']} B; stages "
-                  f"{json.dumps(o.stats['stage_s'])} [{card}]", flush=True)
-        print(f"  {output}: median realtime factor {sorted(rtfs)[1]:.1f}x "
-              f"over {audio_seconds():.0f} s of audio [{card}]", flush=True)
+        print(f"phase 4: the fallback wires {FALLBACK}, output='f32' and "
+              f"'s16'", flush=True)
+        same("fallback_f32", run("fallback_f32", "f32", **FALLBACK), f32,
+             "the default config's f32")
+        same("fallback_s16", run("fallback_s16", "s16", **FALLBACK), s16,
+             "the default config's int16")
+
+        print("phase 4: the floor0 corpus, output='f32', 's16' and 'f32' "
+              "under residue_transport='values'", flush=True)
+        f0_f32 = run("floor0_f32", "f32", f0_corpus)
+        f0_anchors = [fut.result() for fut in f0_anchor_futs]
+        f0_err, f0_share, f0_lsb = 0.0, 0.0, 0
+        for i, (pcm, ref) in enumerate(zip(f0_f32, f0_anchors)):
+            if pcm.shape != ref.shape or not np.isfinite(pcm).all():
+                raise AssertionError(f"floor0 stream {i}: shape {pcm.shape} "
+                                     f"vs {ref.shape} or non-finite PCM")
+            f0_err = max(f0_err,
+                         float(np.abs(pcm.astype(np.float64) - ref).max()))
+        print(f"  f32: max abs vs float64 anchor {f0_err:.3e} over "
+              f"{len(f0_f32)} streams (floor0 is float32 LSP synthesis; "
+              f"the s16 budget below is the gate)", flush=True)
+        f0_s16 = run("floor0_s16", "s16", f0_corpus)
+        for i, (got, pcm, ref) in enumerate(zip(f0_s16, f0_f32, f0_anchors)):
+            if got.dtype != np.int16 or not np.array_equal(got,
+                                                           _quantize(pcm, np)):
+                raise AssertionError(f"floor0 stream {i}: s16 differs from the "
+                                     "host quantization of this card's f32")
+            ref_q = np.clip(np.rint(ref * 32768.0), -32768, 32767)
+            diff = np.abs(got.astype(np.int64) - ref_q)
+            share = float((diff > FLOOR0_LSB).mean())
+            f0_share, f0_lsb = max(f0_share, share), max(f0_lsb, diff.max())
+            if share > FLOOR0_SHARE:
+                raise AssertionError(f"floor0 stream {i}: {share:.3e} of "
+                                     f"samples over {FLOOR0_LSB} LSB")
+        print(f"  s16: equals the host quantization of the f32 output; worst "
+              f"stream has {f0_share:.3e} of samples over {FLOOR0_LSB} LSB "
+              f"from the quantized anchor (limit {FLOOR0_SHARE:g}), max "
+              f"{int(f0_lsb)} LSB", flush=True)
+        same("floor0_values",
+             run("floor0_values", "f32", f0_corpus,
+                 residue_transport="values"),
+             f0_f32, "the symbol wire's f32")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    # -- phase 5: kernel times (the CPU workers have stopped), throughput
+    print("phase 5: kernel, plain twin and library times (CUDA events, "
+          f"mean of 20 after a warm call) [{card}]", flush=True)
+    for res in checks.values():
+        _time(res)
+    f0_seconds = sum(p.shape[1] for p in f0_f32) / floor0_32.RECIPE["rate"]
+    for name, output, sources, seconds, settings in (
+            ("f32", "f32", corpus, audio_seconds(), {}),
+            ("s16", "s16", corpus, audio_seconds(), {}),
+            ("fallback_s16", "s16", corpus, audio_seconds(), FALLBACK),
+            ("floor0_f32", "f32", f0_corpus, f0_seconds, {})):
+        print(f"phase 5: {name} (output={output!r}): one warm run, three "
+              f"timed runs", flush=True)
+        with configured(**settings):
+            decode_corpus(sources, device="cuda", output=output)
+            rtfs = []
+            for rep in range(3):
+                t0 = time.perf_counter()
+                o = decode_corpus(sources, device="cuda", output=output)
+                wall = time.perf_counter() - t0
+                rtfs.append(seconds / wall)
+                print(f"  run {rep}: {wall:.4f} s, {rtfs[-1]:.1f}x realtime; "
+                      f"d2h {o.stats['d2h_bytes']} B; stages "
+                      f"{json.dumps(o.stats['stage_s'])} [{card}]",
+                      flush=True)
+        print(f"  {name}: median realtime factor {sorted(rtfs)[1]:.1f}x "
+              f"over {seconds:.2f} s of audio [{card}]", flush=True)
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
 
     def entry(name):
         src, ref, run_name, key = KERNELS[name]
         e = {"name": name, "route": "cuda", "source": src, "replaces": ref,
-             "run": run_name, "launches": runs[run_name][key], **checks[key]}
+             "run": run_name, "launches": runs[run_name][key],
+             "launches_per_run": {r: c[key] for r, c in runs.items()
+                                  if c[key]},
+             **{k: checks[key][k] for k in keys}}
         if name == "ola_assemble":
             e["modes"] = {
                 mode: {"replaces": mref, "run": mrun,
-                       "launches": runs[mrun][mkey], **checks[mkey]}
+                       "launches": runs[mrun][mkey],
+                       **{k: checks[mkey][k] for k in keys}}
                 for mode, (mref, mrun, mkey) in K4_MODES.items()
             }
         return e

@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from vorbispizza_tpu.config import VorbisConfig
 from vorbispizza_tpu.models.corpus import decode_corpus as jax_decode_corpus
 from vorbispizza_tpu.reader import VorbisReader
 from vorbispizza_tpu_torch import decode_corpus
+from vorbispizza_tpu_torch.config import VorbisConfig
 from vorbispizza_tpu_torch.testing.streams import make_streams
 
 TOL = 2e-6
@@ -92,13 +92,21 @@ def test_on_error_none_isolates_a_bad_file():
 
 
 def test_unported_output_raises():
-    """Every output of the reference is ported; what is still unported
-    (floor0, value-transport residues) raises, as does an unknown output."""
-    with pytest.raises(NotImplementedError, match="floor0"):
-        decode_corpus(list(make_streams("floor0")), device="cpu")
-    with pytest.raises(NotImplementedError, match="value-transport"):
-        decode_corpus(list(make_streams("values")), device="cpu",
-                      output="s16")
+    """Every output and wire of the reference is ported: floor0 and the
+    value-transport residues decode, within the JAX package's own floor0
+    budget of it (5e-4, tests/test_rawstream.py) and within TOL, and
+    their s16 is the host quantization of their f32; an unknown output
+    raises."""
+    for group, tol in (("floor0", 5e-4), ("values", TOL)):
+        srcs = list(make_streams(group))
+        got = decode_corpus(srcs, device="cpu")
+        want = jax_decode_corpus(srcs, output="f32")
+        assert got.stats["batched"] == len(srcs) and not got.stats["scalar"]
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and np.abs(g - w).max() <= tol
+        s16 = decode_corpus(srcs, device="cpu", output="s16")
+        for q, pcm in zip(s16, got):
+            assert np.array_equal(q, host_quantize(pcm))
     with pytest.raises(ValueError, match="s24"):
         decode_corpus(list(make_streams("mono")), device="cpu", output="s24")
 

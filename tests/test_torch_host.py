@@ -4,6 +4,7 @@ tables, the committed corpus, the import boundary and device resolution.
 The port's host half is a numpy copy of the JAX package's; it must give
 the SAME sig and byte-identical wire buffers for the same merged chunk."""
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -26,6 +27,35 @@ from vorbispizza_tpu_torch.testing.streams import make_streams, vorbisenc_availa
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
+def plain(x, sids=None):
+    """``x`` with every dataclass (each package has its own BucketKey
+    class) replaced by its class name and fields, for comparison across
+    the two packages. Setup ids (``sid``) are numbered per process by each
+    package, so they are replaced by their order of first appearance."""
+    sids = {} if sids is None else sids
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__, *(
+            sids.setdefault(getattr(x, f.name), len(sids)) if f.name == "sid"
+            else plain(getattr(x, f.name), sids)
+            for f in dataclasses.fields(x)))
+    if isinstance(x, (tuple, list)):
+        return tuple(plain(v, sids) for v in x)
+    return x
+
+
+def port_pads(pads, jax_buckets, port_buckets):
+    """The JAX package's pads with its BucketKeys as the port's (the two
+    bucket lists of one chunk are in the same order)."""
+    keys = {jb.key: tb.key for jb, tb in zip(jax_buckets, port_buckets)}
+
+    def conv(k):
+        if isinstance(k, tuple):
+            return tuple(conv(v) for v in k)
+        return keys.get(k, k) if dataclasses.is_dataclass(k) else k
+
+    return {conv(k): v for k, v in pads.items()}
+
+
 def prepared(mod, srcs):
     """(synth, plan, buckets) of one merged chunk through ``mod``'s front
     end, merge and synthesizer (``mod``: either package's models.corpus)."""
@@ -40,19 +70,22 @@ def prepared(mod, srcs):
 @pytest.mark.parametrize("group", ["stereo", "mono", "surround", "oddbooks",
                                    "floor0", "values"])
 def test_prepare_host_matches_reference(group, monkeypatch):
-    """Every output, with the dpack rice flag (sig[6]) forced on and off:
-    the same sig and byte-identical buffers."""
-    from vorbispizza_tpu.config import VorbisConfig
+    """Every output, with the dpack rice flag (sig[6]) forced on and off
+    (each package reads its own config): the same sig and byte-identical
+    buffers."""
+    from vorbispizza_tpu.config import VorbisConfig as JaxConfig
+    from vorbispizza_tpu_torch.config import VorbisConfig
 
     srcs = make_streams(group)
     js, jp, jb = prepared(jax_corpus, srcs)
     ts, tp, tb = prepared(torch_corpus, srcs)
     for output in ("f32", "s16", "s16p", "s16d", "s16df"):
         for rice in ("on", "off"):
+            monkeypatch.setattr(JaxConfig.default, "s16_rice", rice)
             monkeypatch.setattr(VorbisConfig.default, "s16_rice", rice)
             sig_j, host_j, total_j = js.prepare_host(jp, jb, output)
             sig_t, host_t, total_t = ts.prepare_host(tp, tb, output)
-            assert sig_t == sig_j
+            assert plain(sig_t) == plain(sig_j)
             dpack = output in ("s16d", "s16df")
             assert sig_t[6] is (rice == "on" if dpack else True)
             assert total_t == total_j
@@ -72,8 +105,10 @@ def test_prepare_host_pads_match_reference():
     pads = merge_pads([js.prepare_host(jp, jb, "f32")[0]])
     pads = {k: (v * 2 if isinstance(v, int) else v) for k, v in pads.items()}
     sig_j, host_j, _ = js.prepare_host(jp, jb, "f32", pads=pads)
-    sig_t, host_t, _ = ts.prepare_host(tp, tb, "f32", pads=pads)
-    assert sig_t == sig_j
+    sig_t, host_t, _ = ts.prepare_host(tp, tb, "f32",
+                                       pads=port_pads(pads, jb, tb))
+    assert sig_t != ts.prepare_host(tp, tb, "f32")[0]  # the pads applied
+    assert plain(sig_t) == plain(sig_j)
     for a, b in zip(host_t, host_j):
         assert a.tobytes() == b.tobytes()
 
@@ -82,16 +117,16 @@ def test_device_tables_match_reference():
     srcs = make_streams("stereo")
     js, jp, jb = prepared(jax_corpus, srcs)
     ts, tp, tb = prepared(torch_corpus, srcs)
-    for b in tb:
+    for b, jbk in zip(tb, jb):
         key = b.key
         t = device_tables(ts, key, "cpu")
-        n, window, steps = js._bucket_static(key)
+        n, window, steps = js._bucket_static(jbk.key)
         hi, lo = dct_iv_matrix(n // 2)
         assert np.array_equal(t["dct"][0].numpy(), hi)
         assert np.array_equal(t["dct"][1].numpy(), lo)
         assert np.array_equal(t["window"].numpy(), window)
         assert t["steps"].tolist() == [list(s) for s in steps]
-        ref_subs = js._sym_static(key)["subs"]
+        ref_subs = js._sym_static(jbk.key)["subs"]
         assert len(t["subs"]) == len(ref_subs)
         for sub, ref in zip(t["subs"], ref_subs):
             assert sub["ch_list"] == ref["ch_list"]

@@ -19,6 +19,7 @@ import torch
 
 from vorbispizza_tpu.decoder import CLIP_MAX
 from vorbispizza_tpu.ops.coupling import inverse_couple_batch
+from vorbispizza_tpu.ops.floor import floor0_curves as jax_floor0_curves
 from vorbispizza_tpu.ops.floor import floor1_curves, floor1_unwrap
 from vorbispizza_tpu.ops.imdct import imdct_window_batch
 from vorbispizza_tpu.ops.ola import block_assemble_wide
@@ -37,6 +38,11 @@ from vorbispizza_tpu_torch.ops import (
 from vorbispizza_tpu_torch.testing.streams import make_streams
 
 IMDCT_TOL = 2e-6
+#: floor0 against the JAX package's floor0_curves, relative where |curve|
+#: < FLOOR0_RANGE (the bound of tests/test_floor0_device.py): the two
+#: backends' cos/exp differ by a few ulp
+FLOOR0_REL = 2e-4
+FLOOR0_RANGE = 1e4
 
 
 def wire(group):
@@ -102,25 +108,48 @@ def test_residues_bit_exact(group, stereo):
     assert n > 0
 
 
+def floor0_rel_err(got, want):
+    """Largest relative difference where |want| < FLOOR0_RANGE."""
+    ok = np.abs(want) < FLOOR0_RANGE
+    return float(np.max(np.abs(got[ok] - want[ok])
+                        / np.maximum(np.abs(want[ok]), 1e-6), initial=0.0))
+
+
 def test_residues_format0_bit_exact():
     """The floor0 raw stream's residue-0 submap (format 0: strided
-    symbols); its floor0 curves are not ported and say so."""
+    symbols), bit for bit; its floor0 curves against the JAX package's
+    floor0_curves, within FLOOR0_REL."""
     synth, sig, bufs, _ = wire("floor0")
-    n = 0
+    n = n_floor0 = 0
     for bk in synth.buckets(sig, bufs):
         assert sig[1][0][2] == "sym"
         for got, want in residues_both(synth, bk):
             assert np.array_equal(got.numpy(), want)
             n += int(np.count_nonzero(want))
-        with pytest.raises(NotImplementedError, match="floor0"):
-            synth.floor_calls(bk)
-    assert n > 0
+        for ch, w, args in synth.floor_calls(bk):
+            assert w == "floor0"
+            coeffs, amp, used, tab, order, bits, off = args
+            meta = [m for m in bk["metas"] if list(m["channels"]) == ch][0]
+            got = floor.floor0_curves(*args).numpy()
+            want = np.asarray(jax_floor0_curves(
+                jnp.asarray(coeffs.numpy().reshape(-1, order)),
+                jnp.asarray(amp.numpy().reshape(-1)),
+                jnp.asarray(used.numpy().reshape(-1).astype(bool)),
+                order=order, bark_map=meta["bark_map"],
+                bark_map_size=meta["bark_map_size"], amplitude_bits=bits,
+                amplitude_offset=off,
+            ))
+            assert got.shape == want.shape and np.isfinite(got).all()
+            assert floor0_rel_err(got, want) <= FLOOR0_REL
+            n_floor0 += int(used.sum())
+    assert n > 0 and n_floor0 > 0
 
 
 def floors_both(synth, bk, buckets):
     """Per floor group: port stages and the reference's on the same wire."""
     out = []
-    for ch, args in synth.floor_calls(bk):
+    for ch, w, args in synth.floor_calls(bk):
+        assert w == "ys"
         ys01, ysmask, ysnz, used, tab, ab, P, mult, half = args
         meta = [m for m in bk["metas"] if list(m["channels"]) == ch][0]
         ys = floor.rebuild_ys(ys01, ysmask, ysnz, P)
@@ -162,12 +191,7 @@ def test_floor1_stages_bit_exact(group, stereo):
 
 def stage_inputs(synth, bk):
     """Port residues and floors [Fp, C, half] of a bucket."""
-    res = synth.place(bk, [
-        (ch, None if a is None else residue_sym.expand_submap(*a))
-        for ch, a in synth.residue_calls(bk)])
-    flo = synth.place(bk, [
-        (ch, floor.floor1_from_ys(*a)) for ch, a in synth.floor_calls(bk)])
-    return res, flo
+    return synth.residues(bk), synth.floors(bk)
 
 
 @pytest.mark.parametrize("group", ["stereo", "surround"])
@@ -234,14 +258,29 @@ def test_forward_runs_every_stage(stereo):
 
 
 def test_unported_outputs_raise(stereo):
-    """Every output runs now; an unknown one raises, and so does the
-    value-transport residue wire, which is still unported."""
+    """Every output and wire runs now: an unknown output raises, and the
+    value-transport residue wire gives the residues the JAX package's
+    gather (pipeline.py:789-804) gives, bit for bit."""
     synth, sig, bufs, _ = stereo
     with pytest.raises(ValueError, match="s24"):
         synth((*sig[:5], "s24", True), bufs)
     vsynth, vsig, vbufs, _ = wire("values")
-    with pytest.raises(NotImplementedError, match="value-transport"):
-        vsynth(vsig, vbufs)
+    n = 0
+    for bk in vsynth.buckets(vsig, vbufs):
+        packed, gmap, ptag, gtag, shape = vsynth.value_call(bk)
+        g = jnp.asarray(gmap.numpy())
+        if gtag == "u16":
+            g = jax.lax.bitcast_convert_type(g, jnp.uint16).astype(jnp.int32)
+        want = np.asarray(jnp.take(jnp.asarray(packed.numpy()), g, axis=0)
+                          .reshape(shape).astype(jnp.float32))
+        if ptag == "u8b":
+            want = want - 128.0
+        assert np.array_equal(vsynth.residues(bk).numpy(), want)
+        n += int(np.count_nonzero(want))
+    assert n > 0
+    pcm = vsynth(vsig, vbufs)
+    assert pcm.shape == (vsynth.channels, vsig[3])
+    assert torch.isfinite(pcm).all()
 
 
 def jax_quantize(pcm):

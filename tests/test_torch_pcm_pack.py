@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from vorbispizza_tpu.config import VorbisConfig
 from vorbispizza_tpu.decoder import CLIP_MAX
 from vorbispizza_tpu.ops import pcm_pack as ref
 from vorbispizza_tpu_torch import decode_corpus
+from vorbispizza_tpu_torch.config import VorbisConfig
 from vorbispizza_tpu_torch.models.pipeline import BatchSynthesizer
 from vorbispizza_tpu_torch.ops import pcm_pack as pp
 from vorbispizza_tpu_torch.testing.streams import make_streams

@@ -1,0 +1,226 @@
+"""PyTorch port, standalone: the port imports nothing of JAX and nothing of
+the JAX package, and its own copies of the host modules (Ogg, setup
+parsing, the frame planner, the C++ front end, the float64 anchor, the
+test-stream generators) give bit-identical results to the JAX package's.
+
+The copies are the same code (bar the front end's build directory, the
+reader's missing batch-accelerated option and a pure-Python Ogg pager in
+place of libogg's), so every comparison here is exact."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+
+from vorbispizza_tpu.config import VorbisConfig as JaxConfig
+from vorbispizza_tpu.models import corpus as jax_corpus
+from vorbispizza_tpu.reader import VorbisReader as JaxReader
+from vorbispizza_tpu.testing import rawstream as jax_rawstream
+from vorbispizza_tpu_torch.config import VorbisConfig
+from vorbispizza_tpu_torch.models import corpus as torch_corpus
+from vorbispizza_tpu_torch.reader import VorbisReader
+from vorbispizza_tpu_torch.testing import rawstream
+from vorbispizza_tpu_torch.testing.streams import make_streams
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "vorbispizza_tpu_torch"
+GROUPS = ["stereo", "mono", "surround", "oddbooks", "floor0", "values"]
+
+
+def test_port_imports_nothing_of_jax():
+    """Every module of the port, imported in a fresh process, and
+    chip_smoke.py: neither jax nor the JAX package is loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vorbispizza_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__,\n"
+        "                                               p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'vorbispizza_tpu')\n"
+        "       or m.startswith(('jax.', 'vorbispizza_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "assert len(names) > 30, names\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+
+
+IMPORT_RE = re.compile(
+    r"^\s*(import\s+(vorbispizza_tpu|jax)(\s|\.|,|$)"
+    r"|from\s+(vorbispizza_tpu|jax)[. ])"
+)
+
+
+def test_sources_have_no_jax_package_import():
+    """No import line of the port's sources or of chip_smoke.py names the
+    JAX package or jax, lazily inside a function or not."""
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = [
+        f"{f.relative_to(REPO)}:{i}: {line.strip()}"
+        for f in files
+        for i, line in enumerate(f.read_text().splitlines(), 1)
+        if IMPORT_RE.match(line)
+    ]
+    assert not bad, bad
+
+
+def attributes(x) -> dict:
+    """An object's attributes, from its __dict__ and its __slots__."""
+    out = dict(vars(x)) if hasattr(x, "__dict__") else {}
+    for cls in type(x).__mro__:
+        slots = getattr(cls, "__slots__", ())
+        for name in (slots,) if isinstance(slots, str) else slots:
+            if hasattr(x, name):
+                out[name] = getattr(x, name)
+    out.pop("_lock", None)
+    return out
+
+
+#: attributes holding a setup id, which each package numbers per process
+SID_NAMES = ("sid", "_vp_sid")
+
+
+def same(a, b, path="", seen=None, sids=None):
+    """Assert ``a`` (the JAX package's) and ``b`` (the port's) are the same
+    structure: equal values, arrays equal in dtype and content, objects of
+    the same class name with the same attributes, recursively; setup ids
+    need only map one to one."""
+    seen = set() if seen is None else seen
+    sids = {} if sids is None else sids
+    if id(a) in seen:
+        return
+    if isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray), path
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
+        return
+    if isinstance(a, (int, float, str, bytes, bool, type(None), np.generic)):
+        assert type(a).__name__ == type(b).__name__, path
+        assert a == b or (a != a and b != b), path
+        return
+    if isinstance(a, (set, frozenset)):
+        a, b = sorted(a, key=repr), sorted(b, key=repr)
+    if isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{path}[{i}]", seen, sids)
+        return
+    if isinstance(a, dict):
+        assert len(a) == len(b), path
+        for (ka, va), (kb, vb) in zip(sorted(a.items(), key=lambda kv: repr(kv[0])),
+                                      sorted(b.items(), key=lambda kv: repr(kv[0]))):
+            same(ka, kb, f"{path}.key", seen, sids)
+            same(va, vb, f"{path}[{ka!r}]", seen, sids)
+        return
+    if callable(a) or isinstance(a, type(threading.Lock())):
+        return
+    seen.add(id(a))
+    assert type(a).__name__ == type(b).__name__, path
+    fa, fb = attributes(a), attributes(b)
+    assert sorted(fa) == sorted(fb), path
+    for k in fa:
+        if k in SID_NAMES:
+            assert sids.setdefault(fa[k], fb[k]) == fb[k], path
+            assert list(sids.values()).count(fb[k]) == 1, path
+        else:
+            same(fa[k], fb[k], f"{path}.{k}", seen, sids)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_front_end_copies_match(group):
+    """Each package's own front end on the same stream: the parsed setup
+    structures, the frame plan and every bucket array are identical."""
+    for data in make_streams(group):
+        js, jc, jplan, jbuckets = jax_corpus._front_end(data)
+        ts, tc, tplan, tbuckets = torch_corpus._front_end(data)
+        assert jc == tc
+        for part in ("codebooks", "floors", "residues", "mappings", "modes"):
+            same(getattr(js, part), getattr(ts, part), part)
+        same(jplan.soa(), tplan.soa(), "soa")
+        assert jplan.chains == tplan.chains
+        assert jplan.chain_segments == tplan.chain_segments
+        assert (jplan.total_len, jplan.pcm_length) == (tplan.total_len,
+                                                       tplan.pcm_length)
+        assert len(jbuckets) == len(tbuckets)
+        for jb, tb in zip(jbuckets, tbuckets):
+            same(jb, tb, "bucket")
+
+
+def test_same_sees_differences():
+    """``same`` fails on two different setups and on two different plans
+    (so the exact comparisons above compare something)."""
+    a, b = make_streams("stereo")
+    ja, ta = jax_corpus._front_end(a), torch_corpus._front_end(b)
+    for part in ("codebooks", "floors", "mappings"):
+        with pytest.raises(AssertionError):
+            same(getattr(ja[0], part), getattr(ta[0], part), part)
+    with pytest.raises(AssertionError):
+        same(ja[3], ta[3], "buckets")
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_anchor_copy_matches(group):
+    """The port's float64 scalar anchor gives the JAX package's PCM."""
+    for data in make_streams(group):
+        want = JaxReader(data)
+        want.initialize()
+        got = VorbisReader(data)
+        got.initialize()
+        a, b = want.read_all(planar=True), got.read_all(planar=True)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("group", ["stereo", "floor0", "values"])
+def test_prepare_host_copies_match_fallback(group, monkeypatch):
+    """prepare_host on each package's own front-end output under the
+    fallback wires (each package reads its own config): byte-identical
+    buffers and the same sig."""
+    for cfg in (JaxConfig.default, VorbisConfig.default):
+        monkeypatch.setattr(cfg, "floor1_wire", "posts")
+        monkeypatch.setattr(cfg, "residue_transport", "values")
+    srcs = make_streams(group)
+    out = []
+    for mod in (jax_corpus, torch_corpus):
+        fronts = [mod._front_end(s) for s in srcs]
+        synth = mod._synthesizer_for(fronts[0][0], fronts[0][1])
+        for f in fronts:
+            synth.add_setup(f[0])
+        plan, buckets, _ = mod.merge_streams([f[2:4] for f in fronts])
+        out.append(synth.prepare_host(plan, buckets, "f32"))
+    (jsig, jhost, jtotal), (tsig, thost, ttotal) = out
+    assert all(pn[2] != "sym" for pn in tsig[1])
+    same(jsig, tsig, "sig")
+    assert jtotal == ttotal
+    for a, b in zip(jhost, thost):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in dir(rawstream) if n.startswith("make_") and n.endswith("stream")
+))
+def test_raw_streams_page_like_libogg(name):
+    """The port's pure-Python pager gives the bytes libogg gives."""
+    assert getattr(rawstream, name)() == getattr(jax_rawstream, name)()
+
+
+def test_pager_matches_libogg_on_long_and_spanning_packets():
+    rng = np.random.default_rng(3)
+    sizes = rng.integers(0, 3000, size=120)
+    packets = [(bytes(rng.integers(0, 256, size=int(n), dtype=np.uint8)),
+                100 * i) for i, n in enumerate(sizes)]
+    packets[4] = (bytes(70000), 400)  # more than 255 lacing values
+    assert rawstream.page_stream(packets) == jax_rawstream.page_stream(packets)
+    for k in (1, 2, 3, 4, 5):
+        assert (rawstream.page_stream(packets[:k])
+                == jax_rawstream.page_stream(packets[:k]))

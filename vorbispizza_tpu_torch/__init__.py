@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of vorbispizza_tpu's batch decode.
 
-Imports torch and numpy and the jax-free modules of vorbispizza_tpu (host
-front end, setup parsing, the float64 scalar decoder), never jax. The
-device stages are seven hand-written CUDA kernels for Hopper (csrc/), each
-with a plain PyTorch twin that runs for CPU tensors.
+Imports torch and numpy, never jax and nothing of vorbispizza_tpu: the
+host layers (Ogg, setup parsing, the frame planner, the C++ entropy front
+end, the float64 scalar decoder, the test-stream generators) are the
+port's own copies of the JAX package's. The device stages are nine
+hand-written CUDA kernels for Hopper (csrc/), each with a plain PyTorch
+twin that runs for CPU tensors.
 
 Entry point: ``decode_corpus(sources, device="cuda", output="s16")`` (or
 "f32", or "device").

@@ -1,4 +1,5 @@
-// K2 floor1_synth: floor1 curves from the coded-ys wire.
+// K2 floor1_synth: floor1 curves from the coded-ys wire, or (posts mode)
+// from the posts/step2 wire.
 //
 // Replaces three XLA stages of vorbispizza_tpu: the ys rebuild of
 // models/pipeline.py _fused_body (mask bits -> rank cumsum -> take from the
@@ -16,6 +17,13 @@
 // A[v>>4]*B[v&15] -- the reference's exact table product, so the curve is
 // bit-identical to it.
 //
+// Posts mode replaces the posts/step2 branch of _fused_body (737-748: the
+// step2 bit planes unpacked LSB-first over P, the u8 posts taken as they
+// are) followed by ops/floor.py floor1_curves. Thread 0 reads the row's
+// shipped posts (u8 [G, P]; not clamped again, as the reference feeds them
+// straight to floor1_curves) and step2 bits (u8 [G, ceil(P/8)]), skips the
+// rebuild and the cascade, and the render is the same.
+//
 // Bound: the [rows, half] f32 output write; the serial cascade (at most
 // P-2 steps of a few integer ops) runs once a row, beside half/256 store
 // rounds. The design keeps every row's posts in shared memory and reads
@@ -26,6 +34,10 @@
 
 // tab (int32): xs[P] config order | low_nb[P] | high_nb[P] | order[P]
 // (config index of each x-sorted post) | xs_s[P] (sorted x) | base_p[half]
+//
+// kPosts: ys01 holds the posts [G, P] and ysmask the step2 bits
+// [G, ceil(P/8)]; ysnz and rank are unread.
+template <bool kPosts>
 __global__ void floor1_synth_kernel(
     const uint8_t* __restrict__ ys01, const uint8_t* __restrict__ ysmask,
     const uint8_t* __restrict__ ysnz, const int64_t* __restrict__ rank,
@@ -47,7 +59,14 @@ __global__ void floor1_synth_kernel(
   const int32_t* xs_s = tab + 4 * P;
   const int32_t* base_p = tab + 5 * P;
 
-  if (threadIdx.x == 0) {
+  if (kPosts && threadIdx.x == 0) {
+    // the shipped posts and step2 bits (LSB-first over P)
+    const int sb = (P + 7) / 8;
+    for (int i = 0; i < P; ++i) {
+      fin[i] = ys01[g * P + i];
+      s2[i] = (ysmask[g * sb + i / 8] >> (i % 8)) & 1;
+    }
+  } else if (threadIdx.x == 0) {
     // ys rebuild: posts 0/1 raw, the rest from the zero bitmask + the
     // compacted nonzero stream (row-major ranks over the padded rows)
     ys[0] = ys01[g * 2];
@@ -92,13 +111,15 @@ __global__ void floor1_synth_kernel(
         s2[hi] = 1;
       }
     }
+  }
+  if (threadIdx.x == 0) {
     // x-sorted posts (clamped to the floor range, times the multiplier)
     // and each one's enabled neighbours: lo = largest enabled q <= p
     // (0 when none), hi = smallest enabled q > p (P when none)
     int last = -1;
     for (int p = 0; p < P; ++p) {
       const int c = order[p];
-      const int post = min(max(fin[c], 0), rng - 1);
+      const int post = kPosts ? fin[c] : min(max(fin[c], 0), rng - 1);
       y_s[p] = post * multiplier;
       if (s2[c]) last = p;
       lo_s[p] = max(last, 0);
@@ -143,11 +164,26 @@ VP_API int vp_floor1_synth(const void* ys01, const void* ysmask,
                            void* stream) {
   if (P < 2 || P > VP_FLOOR1_MAX_POSTS) return (int)cudaErrorInvalidValue;
   if (G > 0) {
-    floor1_synth_kernel<<<(unsigned)G, 256, 0, (cudaStream_t)stream>>>(
+    floor1_synth_kernel<false><<<(unsigned)G, 256, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)ys01, (const uint8_t*)ysmask, (const uint8_t*)ysnz,
         (const int64_t*)rank, (const uint8_t*)used, (const int32_t*)tab,
         (const float*)ab, (float*)out, (int)P, (int)half, (int)multiplier,
         (int)rng, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Posts mode: posts u8 [G, P], step2 bits u8 [G, ceil(P/8)].
+VP_API int vp_floor1_posts(const void* posts, const void* step2,
+                           const void* used, const void* tab, const void* ab,
+                           void* out, int64_t G, int64_t P, int64_t half,
+                           int64_t multiplier, void* stream) {
+  if (P < 2 || P > VP_FLOOR1_MAX_POSTS) return (int)cudaErrorInvalidValue;
+  if (G > 0) {
+    floor1_synth_kernel<true><<<(unsigned)G, 256, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)posts, (const uint8_t*)step2, nullptr, nullptr,
+        (const uint8_t*)used, (const int32_t*)tab, (const float*)ab,
+        (float*)out, (int)P, (int)half, (int)multiplier, 0, 1);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,916 @@
+"""Frame-batch compiler: turn a logical Vorbis stream into dense, bucketed
+tensors for the batch synthesis pipeline (models/pipeline.py).
+
+This is the "irregular -> dense" pass of the TPU-first design (SURVEY.md §7):
+
+  pass 1 (plan)    — walk every packet, read only the mode header bits
+                     (the same trick the reference uses to measure packets,
+                     NVorbis/StreamDecoder.cs:882 GetPacketGranuleCount),
+                     compute window geometry, global output offsets, chain
+                     segmentation at resyncs, and granule-anchored trims.
+  pass 2 (extract) — entropy-decode every audio packet (floor posts +
+                     pre-coupling residue spectra) into per-bucket arrays.
+
+Buckets are keyed by (mode index, prev flag, next flag): within a bucket the
+blocksize, window vector, floor/residue configs and coupling steps are all
+static, so each bucket runs as one set of kernel launches.
+
+Overlap-add becomes position arithmetic: frame f's windowed samples land at
+offset[f] = offset[f-1] + right_end[f-1] - left_end[f] and neighbors sum
+where they overlap (ops/ola.py). Priming frames (chain starts) contribute
+nothing left of their center; chain-final frames nothing right of it —
+exactly the reference's lapping semantics (StreamDecoder.cs:764).
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+
+from .bitstream import BitReader
+from .errors import InvalidDataError
+from .ogg.logical import Packet, PacketProvider
+from .setup.mode import WindowInfo
+
+
+class BatchUnsupported(Exception):
+    """Stream shape the batch planner does not model (e.g. a granule cut
+    reaching back past an earlier cut). Callers fall back to the scalar
+    streaming decoder."""
+
+
+@dataclass(frozen=True)
+class BucketKey:
+    mode_idx: int
+    prev_flag: bool
+    next_flag: bool
+    #: originating-setup id (setup_sid): lets buckets from DIFFERENT
+    #: setups coexist in one merged plan / fused program (cross-setup
+    #: chunk merging, models/corpus.py). 0 only before extract stamps it.
+    sid: int = 0
+
+
+_sid_counter = [0]
+_sid_lock = threading.Lock()
+
+
+def setup_sid(setup) -> int:
+    """Small process-stable id for a parsed setup object. Byte-identical
+    setup headers share one object (header.parse_setup_cached), so the id
+    is stable for as long as any bucket/synthesizer holds the setup.
+
+    Locked: corpus front ends run on a thread pool and may race the first
+    stamp of a shared setup object — an unlocked double-increment would
+    either register the setup under a sid no bucket carries (KeyError at
+    dispatch) or let two setups collide on one sid (wrong-codebook PCM)."""
+    sid = getattr(setup, "_vp_sid", None)
+    if sid is None:
+        with _sid_lock:
+            sid = getattr(setup, "_vp_sid", None)
+            if sid is None:
+                _sid_counter[0] += 1
+                sid = _sid_counter[0]
+                setup._vp_sid = sid
+    return sid
+
+
+@dataclass(slots=True)
+class FrameEntry:
+    packet: Packet | None
+    mode_idx: int
+    info: WindowInfo
+    offset: int = 0  # global index of frame sample 0 in the accumulator
+    prime: bool = False  # chain start: left half contributes nothing
+    final: bool = False  # chain end: right half contributes nothing
+    granule: int = -1  # end-page granule anchor (packet.granule when present)
+
+
+@dataclass
+class FrameSoA:
+    """Struct-of-arrays view of a plan's frames: everything the device
+    pipeline needs per frame, as numpy arrays (no per-frame Python on the
+    prepare path — merged corpus plans carry ONLY this, no FrameEntry
+    objects)."""
+
+    n: np.ndarray  # [F] blocksize
+    left_start: np.ndarray
+    left_end: np.ndarray
+    right_end: np.ndarray
+    offset: np.ndarray  # [F] global index of frame sample 0
+    prime: np.ndarray  # [F] bool
+    final: np.ndarray  # [F] bool
+
+    @staticmethod
+    def from_frames(frames: list["FrameEntry"]) -> "FrameSoA":
+        F = len(frames)
+        n = np.empty(F, dtype=np.int64)
+        ls = np.empty(F, dtype=np.int64)
+        le = np.empty(F, dtype=np.int64)
+        re = np.empty(F, dtype=np.int64)
+        off = np.empty(F, dtype=np.int64)
+        pr = np.empty(F, dtype=bool)
+        fi = np.empty(F, dtype=bool)
+        for i, fr in enumerate(frames):
+            n[i] = fr.info.n
+            ls[i] = fr.info.left_start
+            le[i] = fr.info.left_end
+            re[i] = fr.info.right_end
+            off[i] = fr.offset
+            pr[i] = fr.prime
+            fi[i] = fr.final
+        return FrameSoA(n, ls, le, re, off, pr, fi)
+
+
+@dataclass
+class FramePlan:
+    frames: list[FrameEntry]
+    total_len: int  # global coordinate span (last chain's end)
+    chains: list[list[int]]  # frame indices per resync-free run
+    chain_segments: list[list[tuple[int, int]]]  # kept ranges per chain
+    buckets: dict[BucketKey, list[int]]  # bucket -> frame indices
+    # native-scan transport: (blob u8[.], starts i64[F], ends i64[F]) — each
+    # frame's packet bytes addressed straight into the Ogg scan's blob, so
+    # extraction hands the C++ decoder zero-copy spans (no Packet objects)
+    scan: tuple | None = None
+    # preset struct-of-arrays (merged plans); lazily built otherwise
+    soa_cache: FrameSoA | None = None
+    # exact per-frame audio bits consumed (set by the native extract path;
+    # None when only the Python path ran). Feeds StreamStats with the
+    # reference's exact definition (StreamStats.cs:94-122) instead of the
+    # whole-packet-bytes approximation.
+    audio_bits: np.ndarray | None = None
+
+    def soa(self) -> FrameSoA:
+        if self.soa_cache is None:
+            self.soa_cache = FrameSoA.from_frames(self.frames)
+        return self.soa_cache
+
+    @property
+    def n_frames(self) -> int:
+        s = self.soa_cache
+        return len(s.n) if s is not None else len(self.frames)
+
+    @property
+    def segments(self) -> list[tuple[int, int]]:
+        return [seg for segs in self.chain_segments for seg in segs]
+
+    @property
+    def pcm_length(self) -> int:
+        return sum(e - s for s, e in self.segments)
+
+    def is_cut_free(self) -> bool:
+        """True when every chain keeps exactly its full center-to-center
+        span — i.e. no granule trims (the fast OLA/split paths' domain)."""
+        s = self.soa()
+        for chain, segs in zip(self.chains, self.chain_segments):
+            if len(chain) < 2:
+                if segs:
+                    return False
+                continue
+            i0, i1 = chain[0], chain[-1]
+            span = (
+                int(s.offset[i0] + s.n[i0] // 2),
+                int(s.offset[i1] + s.n[i1] // 2),
+            )
+            if segs != [span]:
+                return False
+        return True
+
+
+def build_plan(provider: PacketProvider, setup) -> FramePlan:
+    """Pass 1: walk all packets and lay out the output."""
+    frames: list[FrameEntry] = []
+    chains: list[list[int]] = []  # frame indices per chain
+    current: list[int] = []
+    eos_seen = False
+    # fast inline mode-header parse: 1 + mode_bits (+2 window-flag) bits
+    # always fit in the first two bytes (mode_bits <= 6)
+    mode_bits = setup.mode_bits
+    n_modes = len(setup.modes)
+    mode_mask = (1 << mode_bits) - 1
+    block_flags = [m.block_flag for m in setup.modes]
+    need_bits = [1 + mode_bits + (2 if bf else 0) for bf in block_flags]
+    info_memo: dict[tuple[int, bool, bool], WindowInfo] = {}
+    while not eos_seen:
+        packet = provider.get_next_packet()
+        if packet is None:
+            break
+        if packet.is_end_of_stream:
+            eos_seen = True
+        if packet.is_resync and current:
+            chains.append(current)
+            current = []
+        data = packet.data
+        if not data or data[0] & 1:
+            continue
+        v = data[0] | ((data[1] << 8) if len(data) > 1 else 0)
+        mode_idx = (v >> 1) & mode_mask
+        if mode_idx >= n_modes:
+            # scalar-anchor parity: StreamDecoder._decode_packet raises on
+            # an out-of-range mode index (decoder.py) — so must the plan
+            raise InvalidDataError("mode index out of bounds")
+        if need_bits[mode_idx] > 8 * len(data):
+            continue  # window flags truncated: undecodable, skip (anchor parity)
+        if block_flags[mode_idx]:
+            prev_flag = bool((v >> (1 + mode_bits)) & 1)
+            next_flag = bool((v >> (2 + mode_bits)) & 1)
+        else:
+            prev_flag = next_flag = False
+        key = (mode_idx, prev_flag, next_flag)
+        info = info_memo.get(key)
+        if info is None:
+            info = setup.modes[mode_idx].window_info(prev_flag, next_flag)
+            info_memo[key] = info
+        current.append(len(frames))
+        frames.append(
+            FrameEntry(
+                packet=packet, mode_idx=mode_idx, info=info,
+                granule=packet.granule,
+            )
+        )
+    if current:
+        chains.append(current)
+
+    chain_segments: list[list[tuple[int, int]]] = []
+    base = 0
+    for chain in chains:
+        segments: list[tuple[int, int]] = []
+        base = _lay_out_chain(frames, chain, base, segments)
+        chain_segments.append(segments)
+
+    buckets: dict[BucketKey, list[int]] = {}
+    for i, fr in enumerate(frames):
+        key = BucketKey(fr.mode_idx, fr.info.prev_flag, fr.info.next_flag)
+        buckets.setdefault(key, []).append(i)
+    return FramePlan(
+        frames=frames,
+        total_len=max(base, 1),
+        chains=chains,
+        chain_segments=chain_segments,
+        buckets=buckets,
+    )
+
+
+def build_plan_from_scan(
+    blob: np.ndarray,
+    offs: np.ndarray,
+    granules: np.ndarray,
+    flags: np.ndarray,
+    setup,
+    first_audio: int = 3,
+) -> FramePlan:
+    """Pass 1 straight from the native Ogg scan's raw arrays: the
+    mode-header parse, decodability filter, chain split, and (for the
+    dominant stream shape) the chain layout are all vectorized numpy —
+    no per-packet Python objects or byte copies. Semantics identical to
+    build_plan over a provider (differentially tested); exotic anchoring
+    (start trims, granule gaps/regressions) falls back to the exact
+    per-frame layout loop for that chain.
+
+    Reference hot-path analog: Ogg/PacketProvider.CreatePacket:427-560 +
+    StreamDecoder.DecodeNextPacket:696 header reads.
+    """
+    lens_all = np.diff(offs)
+    P_all = len(lens_all)
+    if first_audio >= P_all:
+        return FramePlan([], 1, [], [], {})
+    lens = lens_all[first_audio:]
+    starts = offs[first_audio:-1]
+    g_arr = granules[first_audio:].astype(np.int64)
+    fl = flags[first_audio:]
+    P = len(lens)
+
+    # build_plan stops AFTER the first EOS packet
+    eos = np.nonzero(fl & 2)[0]
+    if len(eos):
+        P = int(eos[0]) + 1
+        lens, starts, g_arr, fl = lens[:P], starts[:P], g_arr[:P], fl[:P]
+
+    safe = np.minimum(starts, len(blob) - 1)
+    b0 = np.where(lens > 0, blob[safe], 1).astype(np.int32)  # empty -> skip
+    b1 = np.where(
+        lens > 1, blob[np.minimum(safe + 1, len(blob) - 1)], 0
+    ).astype(np.int32)
+    v = b0 | (b1 << 8)
+
+    mode_bits = setup.mode_bits
+    n_modes = len(setup.modes)
+    audio = (lens > 0) & ((b0 & 1) == 0)
+    mode_idx = (v >> 1) & ((1 << mode_bits) - 1)
+    if np.any(audio & (mode_idx >= n_modes)):
+        raise InvalidDataError("mode index out of bounds")
+    mi = np.where(audio, mode_idx, 0)
+    bf_arr = np.array([m.block_flag for m in setup.modes], dtype=bool)
+    need_arr = np.array(
+        [1 + mode_bits + (2 if b else 0) for b in bf_arr], dtype=np.int64
+    )
+    decodable = audio & (need_arr[mi] <= 8 * lens)
+    bf = bf_arr[mi] & decodable
+    pf = (np.where(bf, v >> (1 + mode_bits), 0) & 1).astype(bool)
+    nf = (np.where(bf, v >> (2 + mode_bits), 0) & 1).astype(bool)
+
+    sel = np.nonzero(decodable)[0]
+    combo = mi[sel] * 4 + pf[sel] * 2 + nf[sel]
+    infos: dict[int, WindowInfo] = {}
+    for c in np.unique(combo):
+        c = int(c)
+        infos[c] = setup.modes[c >> 2].window_info(bool(c & 2), bool(c & 1))
+    g_sel = g_arr[sel]
+    mi_sel = mi[sel]
+    frames = [
+        FrameEntry(
+            packet=None, mode_idx=int(m), info=infos[int(c)], granule=int(gr)
+        )
+        for m, c, gr in zip(mi_sel, combo, g_sel)
+    ]
+
+    # chains split where any resync packet lies in (prev_sel, sel] —
+    # build_plan breaks on ENCOUNTERING a resync packet, decodable or not
+    cum_res = np.concatenate([[0], np.cumsum((fl & 1).astype(np.int64))])
+    chains: list[list[int]] = []
+    if len(sel):
+        res_before = cum_res[sel + 1]
+        breaks = np.zeros(len(sel), dtype=bool)
+        breaks[1:] = (res_before[1:] - res_before[:-1]) > 0
+        bounds = [0, *np.nonzero(breaks)[0].tolist(), len(sel)]
+        chains = [
+            list(range(a, b))
+            for a, b in zip(bounds[:-1], bounds[1:])
+            if b > a
+        ]
+
+    chain_segments: list[list[tuple[int, int]]] = []
+    base = 0
+    for chain in chains:
+        segments: list[tuple[int, int]] = []
+        nxt = _lay_out_chain_fast(frames, chain, base, segments)
+        if nxt is None:
+            segments = []
+            nxt = _lay_out_chain(frames, chain, base, segments)
+        chain_segments.append(segments)
+        base = nxt
+
+    buckets: dict[BucketKey, list[int]] = {}
+    for c in combo[np.sort(np.unique(combo, return_index=True)[1])]:
+        c = int(c)
+        idxs = np.nonzero(combo == c)[0]
+        info = infos[c]
+        buckets[BucketKey(c >> 2, info.prev_flag, info.next_flag)] = (
+            idxs.tolist()
+        )
+    return FramePlan(
+        frames=frames,
+        total_len=max(base, 1),
+        chains=chains,
+        chain_segments=chain_segments,
+        buckets=buckets,
+        scan=(blob, starts[sel], starts[sel] + lens[sel]),
+    )
+
+
+def _lay_out_chain_fast(frames, chain, base, segments):
+    """Vectorized _lay_out_chain for the dominant stream shape: every
+    granule anchor agrees with the window math except a possible end trim
+    on the final frame. Returns the next base, or None to fall back to the
+    exact per-frame loop (start trims, gaps, mid-stream cuts)."""
+    if not chain:
+        return base
+    k = len(chain)
+    n_ = np.array([frames[i].info.n for i in chain], dtype=np.int64)
+    le = np.array([frames[i].info.left_end for i in chain], dtype=np.int64)
+    re = np.array([frames[i].info.right_end for i in chain], dtype=np.int64)
+    g = np.array([frames[i].granule for i in chain], dtype=np.int64)
+    off0 = base - n_[0] // 2
+    off = off0 + np.concatenate(
+        [[0], np.cumsum(re[:-1] - le[1:])]
+    )
+    centers = off + n_ // 2
+    end = int(centers[-1])
+    anch = np.nonzero(g >= 0)[0]
+    cut = 0
+    if len(anch):
+        emis = centers - centers[0]
+        implied = int(g[anch[0]] - emis[anch[0]])
+        if implied != 0:
+            return None  # start offset / start trim: exact path
+        exp = emis[anch]
+        if len(anch) > 1 and not np.array_equal(g[anch[:-1]], exp[:-1]):
+            return None  # mid-stream gap or cut: exact path
+        cut = int(exp[-1] - g[anch[-1]])
+        if cut < 0:
+            return None  # forward jump at the final anchor
+        if cut > 0 and anch[-1] != k - 1:
+            return None  # trim not on the final frame
+    keep_end = end - cut
+    if keep_end < base:
+        return None  # cut past the chain start: exact path raises
+    for i, o in zip(chain, off):
+        frames[i].offset = int(o)
+    frames[chain[0]].prime = True
+    frames[chain[-1]].final = True
+    if keep_end > base:
+        segments.append((base, keep_end))
+    return end
+
+
+def _lay_out_chain(
+    frames: list[FrameEntry],
+    chain: list[int],
+    base: int,
+    segments: list[tuple[int, int]],
+) -> int:
+    """Assign offsets for one resync-free run of frames; returns next base.
+
+    Mirrors StreamDecoder._next_block position/trim semantics: the first
+    frame primes lapping only; per-frame emission is the center-to-center
+    distance; page granules anchor the position and cut excess samples
+    (end trim / short first page)."""
+    if not chain:
+        return base
+    first = frames[chain[0]]
+    first.prime = True
+    first.offset = base - first.info.n // 2  # center of frame 0 at `base`
+    frames[chain[-1]].final = True
+
+    centers = [base]  # global center position of each frame
+    prev = first
+    for idx in chain[1:]:
+        fr = frames[idx]
+        fr.offset = prev.offset + prev.info.right_end - fr.info.left_end
+        centers.append(fr.offset + fr.info.n // 2)
+        prev = fr
+
+    # granule anchoring + cuts (reference StreamDecoder.cs:458-463,657-666)
+    pos: int | None = None  # granule-space position after frame f
+    unanchored = 0
+    seg_open = base  # global start of the currently-kept range
+    for k, idx in enumerate(chain):
+        fr = frames[idx]
+        n_emit = centers[k] - centers[k - 1] if k > 0 else 0
+        if pos is None:
+            unanchored += n_emit
+        else:
+            pos += n_emit
+        granule = fr.granule
+        if granule < 0:
+            continue
+        if pos is None:
+            implied_start = granule - unanchored
+            if implied_start < 0:
+                seg_open = _cut(segments, seg_open, centers[k], -implied_start)
+            pos = granule
+            unanchored = 0
+        elif granule < pos:
+            seg_open = _cut(segments, seg_open, centers[k], pos - granule)
+            pos = granule
+        else:
+            pos = granule  # forward jump: position skips, no samples inserted
+    end = centers[-1]
+    if end > seg_open:
+        segments.append((seg_open, end))
+    return end
+
+
+def _cut(
+    segments: list[tuple[int, int]], seg_open: int, emitted_end: int, cut: int
+) -> int:
+    """Drop the last ``cut`` samples emitted so far; returns the new open
+    segment start (samples resume at ``emitted_end``)."""
+    keep_until = emitted_end - cut
+    if keep_until < seg_open:
+        raise BatchUnsupported("granule cut reaches past an earlier cut")
+    if keep_until > seg_open:
+        segments.append((seg_open, keep_until))
+    return emitted_end
+
+
+def split_plan(plan: FramePlan, max_frames: int) -> list[FramePlan]:
+    """Split a plan into chunks of at most ``max_frames`` frames for
+    bounded-memory decode of long streams.
+
+    Chains split at frame boundaries with the boundary frame DUPLICATED:
+    the earlier chunk re-flags it ``final`` (right half masked) and the
+    later chunk ``prime`` (left half masked), which is exactly the lapping
+    split — per-sample output is bit-identical to the unsplit decode.
+
+    Plans with granule cuts are returned unsplit (rare; trimmed streams)."""
+    if len(plan.frames) <= max_frames:
+        return [plan]
+    max_frames = max(max_frames, 2)
+    if not plan.is_cut_free():
+        return [plan]
+
+    plans: list[FramePlan] = []
+    cur_frames: list[FrameEntry] = []
+    cur_chains: list[list[int]] = []
+    cur_segs: list[list[tuple[int, int]]] = []
+
+    def flush():
+        if not cur_frames:
+            return
+        buckets: dict[BucketKey, list[int]] = {}
+        for i, fr in enumerate(cur_frames):
+            key = BucketKey(fr.mode_idx, fr.info.prev_flag, fr.info.next_flag)
+            buckets.setdefault(key, []).append(i)
+        total = max(
+            (fr.offset + fr.info.n for fr in cur_frames), default=1
+        )
+        plans.append(
+            FramePlan(
+                frames=list(cur_frames),
+                total_len=total,
+                chains=list(cur_chains),
+                chain_segments=list(cur_segs),
+                buckets=buckets,
+            )
+        )
+        cur_frames.clear()
+        cur_chains.clear()
+        cur_segs.clear()
+
+    def add_subchain(idxs, prime_first: bool, final_last: bool):
+        base = len(cur_frames)
+        sub: list[int] = []
+        for j, fi in enumerate(idxs):
+            fr = plan.frames[fi]
+            cur_frames.append(
+                FrameEntry(
+                    packet=fr.packet,
+                    mode_idx=fr.mode_idx,
+                    info=fr.info,
+                    offset=fr.offset,
+                    prime=fr.prime or (prime_first and j == 0),
+                    final=fr.final or (final_last and j == len(idxs) - 1),
+                    granule=fr.granule,
+                )
+            )
+            sub.append(base + j)
+        cur_chains.append(sub)
+        if len(idxs) >= 2:
+            f0 = cur_frames[sub[0]]
+            f1 = cur_frames[sub[-1]]
+            cur_segs.append(
+                [(f0.offset + f0.info.n // 2, f1.offset + f1.info.n // 2)]
+            )
+        else:
+            cur_segs.append([])
+
+    for chain in plan.chains:
+        i = 0
+        while i < len(chain):
+            room = max_frames - len(cur_frames)
+            if room < 2:
+                flush()
+                continue
+            take = min(len(chain) - i, room)
+            end = i + take
+            add_subchain(
+                chain[i:end],
+                prime_first=(i > 0),
+                final_last=(end < len(chain)),
+            )
+            if end >= len(chain):
+                break
+            i = end - 1  # boundary frame re-enters the next chunk as priming
+    flush()
+    return plans
+
+
+@dataclass
+class FloorGroup:
+    """Channels of one bucket sharing a floor config."""
+
+    floor: object  # Floor0 | Floor1 config
+    channels: list[int]
+    # floor1 tensors [F, n_ch, P] / floor0 tensors [F, n_ch, order]
+    posts: np.ndarray | None = None
+    step2: np.ndarray | None = None
+    # floor1 coded values (pre-unwrap, int16): the ys wire ships these
+    # and the device runs the unwrap cascade (ops/floor.floor1_unwrap)
+    ys: np.ndarray | None = None
+    coefficients: np.ndarray | None = None
+    amplitude: np.ndarray | None = None
+    used: np.ndarray | None = None  # [F, n_ch] bool
+
+
+@dataclass
+class SymBucket:
+    """Symbol-transport residue payload for one bucket (native/symbols.py
+    wire contract). ``syms[g]`` is group g's entry stream for this bucket's
+    frames, concatenated in frame order; ``slots[g]`` is the parallel
+    per-APPLIED-partition stream of traversal slot ids
+    (pv = partition_index * V + vector_row, frame-local — the region row
+    each partition's values land in), one entry per nsym symbols. The
+    device scatters partition rows straight to region rows, so no
+    classifications or pair counts ride the wire at all.
+    Merges by concatenation along the frame axis (models/corpus.py)."""
+
+    layout: object  # SymLayout (shared per setup)
+    groups: list  # list[SymGroup] for this bucket's mapping
+    syms: list  # per group (global id): np.ndarray u16 (possibly empty)
+    slots: list  # per group: np.ndarray u16 [syms[g].size // nsym_g]
+    part_counts: np.ndarray  # [F, n_groups] i32 applied partitions
+
+
+@dataclass
+class BucketBatch:
+    key: BucketKey
+    n: int
+    frame_indices: np.ndarray  # [F] indices into plan.frames
+    offsets: np.ndarray  # [F] int32 global frame start
+    prime: np.ndarray  # [F] bool
+    final: np.ndarray  # [F] bool
+    residues: np.ndarray | None  # [F, C, n//2] float32, pre-coupling
+    floor_groups: list[FloorGroup] = field(default_factory=list)
+    sym: SymBucket | None = None  # symbol transport (residues is None)
+
+    @property
+    def batch_cost(self) -> int:
+        """Chunk-sizing cost: DENSE spectrum bytes (frames x channels x
+        half x f32) regardless of wire format, so corpus_batch_bytes keeps
+        meaning 'audio per merged execution' — the knob bounds compile
+        size and pipeline granularity, not literal transfer bytes."""
+        if self.residues is not None:
+            return self.residues.nbytes
+        channels = sum(len(g.channels) for g in self.floor_groups)
+        return len(self.frame_indices) * channels * (self.n // 2) * 4
+
+    @property
+    def transport_nbytes(self) -> int:
+        """Approximate host->device residue wire bytes."""
+        if self.residues is not None:
+            return self.residues.nbytes
+        s = self.sym
+        total = 0
+        for g, arr, sl in zip(s.groups, s.syms, s.slots):
+            w = max(int(g.entries).bit_length(), 1)
+            total += (arr.size * w + 7) // 8
+            total += sl.size * 2  # scatter slot ids (~w_i<=16 bits packed)
+        return total
+
+
+def extract_batch(
+    plan: FramePlan, setup, channels: int, ident=None,
+    use_native: bool | None = None,
+) -> list[BucketBatch]:
+    """Pass 2: entropy-decode every frame into per-bucket dense tensors.
+
+    Uses the C++ front end (native/frontend.cpp, threaded over packets) when
+    available and ``ident`` is provided; falls back to the pure-Python
+    decode otherwise. Both paths produce identical tensors (double
+    accumulation, float32 output). ``use_native=None`` follows
+    VorbisConfig.default.use_native_frontend."""
+    from .config import VorbisConfig
+
+    if use_native is None:
+        use_native = VorbisConfig.default.use_native_frontend
+    if use_native and ident is not None:
+        from . import native
+
+        if native.available():
+            transport = VorbisConfig.default.residue_transport
+            layout = None
+            if transport in ("auto", "symbols"):
+                layout = _sym_layout_cached(setup, ident)
+            return _extract_batch_native(
+                plan, setup, channels, ident, sym_layout=layout
+            )
+    return _extract_batch_python(plan, setup, channels)
+
+
+def _sym_layout_cached(setup, ident):
+    """symbol_layout(setup) memoized on the setup object (None = setup
+    ineligible for symbol transport; callers use value transport)."""
+    try:
+        return setup._sym_layout
+    except AttributeError:
+        from .native.symbols import symbol_layout
+
+        setup._sym_layout = symbol_layout(setup, ident)
+        return setup._sym_layout
+
+
+def _slice_gather(flat: np.ndarray, starts: np.ndarray, lens: np.ndarray):
+    """Concatenate flat[starts[i] : starts[i]+lens[i]] for all i —
+    vectorized (repeat/cumsum), no per-slice Python loop."""
+    total = int(lens.sum())
+    if total == 0:
+        return np.empty(0, dtype=flat.dtype)
+    cum = np.cumsum(lens) - lens
+    idx = (
+        np.arange(total, dtype=np.int64)
+        - np.repeat(cum, lens)
+        + np.repeat(starts, lens)
+    )
+    return flat[idx]
+
+
+def _bucket_groups(mapping, channels: int):
+    """Group channels by floor config (static per mapping)."""
+    groups: list[FloorGroup] = []
+    by_id: dict[int, FloorGroup] = {}
+    for c in range(channels):
+        fl = mapping.submap_floor[mapping.mux[c]]
+        g = by_id.get(id(fl))
+        if g is None:
+            g = FloorGroup(floor=fl, channels=[])
+            by_id[id(fl)] = g
+            groups.append(g)
+        g.channels.append(c)
+    return groups
+
+
+def _extract_batch_native(
+    plan: FramePlan, setup, channels: int, ident, sym_layout=None
+) -> list[BucketBatch]:
+    from . import native
+    from .native.serialize import serialize_setup
+
+    blob = getattr(setup, "_native_blob", None)
+    if blob is None:
+        blob = serialize_setup(setup, ident)
+        setup._native_blob = blob
+    max_half = ident.blocksizes[1] // 2
+    max_order = max(
+        (f.order for f in setup.floors if f.floor_type == 0), default=0
+    )
+    if plan.scan is not None:
+        # zero-copy: packet spans point straight into the Ogg scan's blob
+        sblob, sstarts, sends = plan.scan
+    else:
+        packets = [fr.packet.data for fr in plan.frames]
+        offs = np.zeros(len(packets) + 1, dtype=np.int64)
+        for i, p in enumerate(packets):
+            offs[i + 1] = offs[i] + len(p)
+        sblob = np.frombuffer(b"".join(packets), dtype=np.uint8)
+        sstarts, sends = offs[:-1], offs[1:]
+    if sym_layout is not None:
+        dec = native.decode_packet_spans_sym(
+            blob, sblob, sstarts, sends, channels, max_order, sym_layout
+        )
+        # per-(packet, group) stream starts within each packet's region
+        counts = dec["sym_counts"]
+        goff = np.zeros_like(counts)
+        np.cumsum(counts[:, :-1], axis=1, out=goff[:, 1:])
+        syms_flat = dec["syms"].reshape(-1)
+        slots_flat = dec["slots"].reshape(-1)
+    else:
+        dec = native.decode_packet_spans(
+            blob, sblob, sstarts, sends, channels, max_half, max_order
+        )
+    meta = dec["meta"]
+    for i, fr in enumerate(plan.frames):
+        if meta[i, 0] != 1 or meta[i, 1] != fr.mode_idx:
+            raise RuntimeError(
+                f"native front end disagrees with plan at frame {i}"
+            )
+    plan.audio_bits = meta[:, 4].astype(np.int64)
+
+    sid = setup_sid(setup)
+    out: list[BucketBatch] = []
+    for key, indices in plan.buckets.items():
+        mode = setup.modes[key.mode_idx]
+        mapping = setup.mappings[mode.mapping_idx]
+        key = replace(key, sid=sid)
+        n = mode.n
+        half = n // 2
+        idx = np.asarray(indices, dtype=np.int64)
+
+        residues = None
+        sym = None
+        if sym_layout is not None:
+            groups_m = sym_layout.groups_per_mapping[mode.mapping_idx]
+            sym_cap = sym_layout.sym_cap
+            G = len(groups_m)
+            cnt = counts[idx, :G]
+            nsyms = np.asarray([g.nsym for g in groups_m], dtype=np.int64)
+            if np.any(cnt % nsyms[None, :]):
+                raise RuntimeError("symbol stream not partition-aligned")
+            pc = (cnt // nsyms[None, :]).astype(np.int32)  # [F, G]
+            # slot streams flush group-major with their own cursor
+            # (frontend.cpp): offsets are the per-packet exclusive cumsum
+            poff = np.zeros_like(pc)
+            np.cumsum(pc[:, :-1], axis=1, out=poff[:, 1:])
+            streams = []
+            slot_streams = []
+            for gi in range(G):
+                starts = idx * sym_cap + goff[idx, gi]
+                lens = cnt[:, gi].astype(np.int64)
+                streams.append(_slice_gather(syms_flat, starts, lens))
+                pstarts = idx * sym_cap + poff[:, gi].astype(np.int64)
+                slot_streams.append(
+                    _slice_gather(
+                        slots_flat, pstarts, pc[:, gi].astype(np.int64)
+                    )
+                )
+            sym = SymBucket(
+                layout=sym_layout,
+                groups=groups_m,
+                syms=streams,
+                slots=slot_streams,
+                part_counts=pc,
+            )
+        else:
+            residues = np.ascontiguousarray(dec["residues"][idx][:, :, :half])
+
+        groups = _bucket_groups(mapping, channels)
+        for g in groups:
+            chs = np.asarray(g.channels, dtype=np.int64)
+            g.used = dec["used"][idx][:, chs].astype(bool)
+            if g.floor.floor_type == 1:
+                g.posts = np.ascontiguousarray(
+                    dec["posts"][idx][:, chs, : g.floor.n_posts]
+                )
+                g.step2 = dec["step2"][idx][:, chs, : g.floor.n_posts].astype(bool)
+                g.ys = np.ascontiguousarray(
+                    dec["ys"][idx][:, chs, : g.floor.n_posts]
+                )
+            else:
+                g.coefficients = np.ascontiguousarray(
+                    dec["f0_coeffs"][idx][:, chs, : g.floor.order]
+                )
+                g.amplitude = np.ascontiguousarray(dec["f0_amp"][idx][:, chs])
+
+        out.append(
+            BucketBatch(
+                key=key,
+                n=n,
+                frame_indices=idx,
+                offsets=np.asarray(
+                    [plan.frames[i].offset for i in indices], dtype=np.int32
+                ),
+                prime=np.asarray([plan.frames[i].prime for i in indices], dtype=bool),
+                final=np.asarray([plan.frames[i].final for i in indices], dtype=bool),
+                residues=residues,
+                floor_groups=groups,
+                sym=sym,
+            )
+        )
+    return out
+
+
+def _extract_batch_python(plan: FramePlan, setup, channels: int) -> list[BucketBatch]:
+    sid = setup_sid(setup)
+    out: list[BucketBatch] = []
+    for key, indices in plan.buckets.items():
+        mode = setup.modes[key.mode_idx]
+        mapping = setup.mappings[mode.mapping_idx]
+        key = replace(key, sid=sid)
+        n = mode.n
+        half = n // 2
+        F = len(indices)
+        residues = np.zeros((F, channels, half), dtype=np.float32)
+
+        groups = _bucket_groups(mapping, channels)
+        for g in groups:
+            nc = len(g.channels)
+            g.used = np.zeros((F, nc), dtype=bool)
+            if g.floor.floor_type == 1:
+                P = g.floor.n_posts
+                g.posts = np.zeros((F, nc, P), dtype=np.int32)
+                g.step2 = np.zeros((F, nc, P), dtype=bool)
+                g.ys = np.zeros((F, nc, P), dtype=np.int16)
+            else:
+                g.coefficients = np.zeros((F, nc, g.floor.order), dtype=np.float32)
+                g.amplitude = np.zeros((F, nc), dtype=np.int32)
+
+        for fi, frame_idx in enumerate(indices):
+            fr = plan.frames[frame_idx]
+            br = BitReader(fr.packet.data)
+            br.read_bit()
+            br.read_bits(setup.mode_bits)
+            mode.read_window_flags(br)
+            floor_data, _, res = mapping.decode_packet_raw(br, n)
+            residues[fi] = res.astype(np.float32)
+            for g in groups:
+                for ci, c in enumerate(g.channels):
+                    fd = floor_data[c]
+                    if fd.unused:
+                        continue
+                    g.used[fi, ci] = True
+                    if g.floor.floor_type == 1:
+                        g.posts[fi, ci] = fd.posts
+                        g.step2[fi, ci] = fd.step2
+                        if fd.ys is not None:
+                            g.ys[fi, ci] = np.minimum(fd.ys, 32767)
+                    else:
+                        g.coefficients[fi, ci] = fd.coefficients
+                        g.amplitude[fi, ci] = fd.amplitude
+
+        out.append(
+            BucketBatch(
+                key=key,
+                n=n,
+                frame_indices=np.asarray(indices, dtype=np.int64),
+                offsets=np.asarray(
+                    [plan.frames[i].offset for i in indices], dtype=np.int32
+                ),
+                prime=np.asarray([plan.frames[i].prime for i in indices], dtype=bool),
+                final=np.asarray([plan.frames[i].final for i in indices], dtype=bool),
+                residues=residues,
+                floor_groups=groups,
+            )
+        )
+    return out

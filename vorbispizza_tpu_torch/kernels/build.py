@@ -39,12 +39,16 @@ NVCC_FLAGS = [
 
 P = ctypes.c_void_p
 I = ctypes.c_int64
+D = ctypes.c_double
 
 #: C entry -> argument types (pointers and the stream last as c_void_p,
-#: every integer as int64)
+#: every integer as int64, a float32 scalar as a double holding it)
 SIGNATURES = {
     "vp_residue_expand": [P] * 4 + [I] * 15 + [P],
     "vp_floor1_synth": [P] * 8 + [I] * 6 + [P],
+    "vp_floor1_posts": [P] * 6 + [I] * 4 + [P],
+    "vp_floor0_synth": [P] * 6 + [I] * 3 + [D] * 2 + [P],
+    "vp_residue_gather": [P] * 3 + [I] * 4 + [P],
     "vp_couple_spectrum": [P] * 4 + [I] * 4 + [P],
     "vp_ola_assemble": [P] * 7 + [I] * 6 + [P],
     "vp_dpack_select": [P] * 4 + [I] * 4 + [P],
@@ -53,11 +57,14 @@ SIGNATURES = {
 }
 
 #: launches per kernel since the last reset (chip_smoke reads these to
-#: show the main path went through every kernel); K4 counts each output
-#: mode under its own name
+#: show the main path went through every kernel); K2's posts mode and
+#: K4's output modes count under their own names
 COUNTS = {
     "residue_expand": 0,
+    "residue_gather": 0,
     "floor1_synth": 0,
+    "floor1_posts": 0,
+    "floor0_synth": 0,
     "couple_spectrum": 0,
     "ola_assemble": 0,
     "ola_assemble_s16": 0,

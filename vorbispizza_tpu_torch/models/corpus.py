@@ -37,20 +37,26 @@ import time
 import numpy as np
 import torch
 
-from vorbispizza_tpu.decoder import CLIP_MAX, StreamDecoder
-from vorbispizza_tpu.frames import (
+from .. import native
+from ..config import VorbisConfig
+from ..decoder import CLIP_MAX, StreamDecoder
+from ..device import resolve_device
+from ..errors import InvalidDataError, VorbisError
+from ..frames import (
     BatchUnsupported,
     BucketBatch,
     FloorGroup,
     FramePlan,
+    FrameSoA,
     SymBucket,
     build_plan,
+    build_plan_from_scan,
     extract_batch,
 )
-from vorbispizza_tpu.ogg.container import OggContainer
-
-from ..device import resolve_device
+from ..ogg.container import OggContainer
 from ..ops import pcm_pack
+from ..reader import VorbisReader
+from ..setup.header import parse_comments, parse_ident, parse_setup_cached
 from .pipeline import BatchSynthesizer
 
 _SYNTH_CACHE: dict = {}
@@ -84,15 +90,6 @@ def _front_end_native(data: bytes):
     """All-native front end: C++ Ogg scan -> raw arrays -> vectorized plan
     -> C++ entropy decode. Returns None when the native path cannot model
     the stream (Python path instead)."""
-    from vorbispizza_tpu import native
-    from vorbispizza_tpu.config import VorbisConfig
-    from vorbispizza_tpu.frames import build_plan_from_scan
-    from vorbispizza_tpu.setup.header import (
-        parse_comments,
-        parse_ident,
-        parse_setup_cached,
-    )
-
     if not VorbisConfig.default.use_native_frontend or not native.available():
         return None
     res = native.scan_ogg_arrays(data)
@@ -123,8 +120,6 @@ def _front_end(source):
         return fast
     container = OggContainer(io.BytesIO(data))
     if not container.try_init():
-        from vorbispizza_tpu.errors import InvalidDataError
-
         raise InvalidDataError("no logical stream found")
     provider = container.providers[0]
     dec = StreamDecoder(provider)
@@ -142,8 +137,6 @@ def merge_streams(items):
     range and its chains stay self-contained. All streams share the channel
     count but not the setup: bucket keys carry their setup id.
     Returns (plan, buckets, pcm_lengths)."""
-    from vorbispizza_tpu.frames import FrameSoA
-
     soa_parts: list = []
     n_frames = 0
     chains: list[list[int]] = []
@@ -256,8 +249,6 @@ def merge_streams(items):
 
 def _scalar_fallback(source, output: str, clip_samples: bool, device):
     """Exact streaming decode of one source (BatchUnsupported streams)."""
-    from vorbispizza_tpu.reader import VorbisReader
-
     r = VorbisReader(
         source if isinstance(source, (str, bytes)) else bytes(source),
         clip_samples=clip_samples,
@@ -326,9 +317,6 @@ def decode_corpus(
     "planes" or "raw") or "device" (float32 tensors left on the device,
     unclipped, as the reference leaves them). ``on_error``: "raise"
     propagates a malformed source's error; "none" leaves its slot None."""
-    from vorbispizza_tpu.config import VorbisConfig
-    from vorbispizza_tpu.errors import VorbisError
-
     if output not in ("f32", "s16", "device"):
         raise ValueError(f"output {output!r}: not 'f32', 's16' or 'device'")
     if on_error not in ("raise", "none"):

@@ -5,23 +5,23 @@ Port of vorbispizza_tpu/models/pipeline.py in two halves.
 The HOST half (``BatchSynthesizer.prepare_host`` and the helpers it calls)
 is a numpy copy of the reference's host methods: it produces the same
 ``sig`` and byte-identical host buffers for the same merged chunk, so both
-packages read the same wire. It is copied rather than imported only
-because the reference module imports jax, which the port's machines do
-not have.
+packages read the same wire. Like every host module of the port, it is a
+copy: the port imports nothing of the JAX package.
 
 The DEVICE half (``BatchSynthesizer.forward``) does what the reference's
-fused XLA program (``_fused_body``) does for the symbol residue wire and
-the coded-ys floor1 wire, for every output of the reference:
+fused XLA program (``_fused_body``) does, for every residue and floor wire
+and every output of the reference:
 
-    residue_sym.expand_submap (K1) -> floor.floor1_from_ys (K2)
+    residues: residue_sym.expand_submap (K1, symbol transport) or
+              residue_values.residue_gather (K9, value transport)
+    floors:   floor.floor1_from_ys (K2, coded-ys wire),
+              floor.floor1_from_posts (K2 posts mode, posts/step2 wire) or
+              floor.floor0_curves (K8, floor0)
     -> coupling.couple_spectrum (K3) -> imdct.dct_iv (torch.matmul)
     -> ola.ola_assemble (K4, with the IMDCT epilogue folded in; "f32"
        PCM, or the s16 quantize in registers for "s16"/"s16p"/dpack)
     -> for "s16d"/"s16df": pcm_pack.dpack_wire (K5 select, K6 header and
        planes, K7 unary on a rice wire), one u8 wire buffer
-
-Not ported yet, and raising NotImplementedError: value-transport residues,
-the posts/step2 floor1 wire and floor0.
 """
 
 from __future__ import annotations
@@ -33,28 +33,40 @@ import numpy as np
 import torch
 from torch import nn
 
-from vorbispizza_tpu.dsp.window import full_window
-from vorbispizza_tpu.frames import (
+from ..config import VorbisConfig
+from ..dsp.window import full_window
+from ..frames import (
     BatchUnsupported,
     BucketBatch,
     FramePlan,
     _bucket_groups,
     setup_sid,
 )
-from vorbispizza_tpu.setup.mode import window_geometry
-
+from ..native.symbols import _vec_shape
 from ..ops.coupling import couple_spectrum
-from ..ops.floor import floor1_from_ys, floor1_tables, inverse_db_tables
+from ..ops.floor import (
+    floor0_curves,
+    floor0_tables,
+    floor1_from_posts,
+    floor1_from_ys,
+    floor1_tables,
+    inverse_db_tables,
+)
 from ..ops.imdct import dct_iv, dct_iv_basis
 from ..ops.ola import ola_assemble
 from ..ops.pcm_pack import dpack_wire, wire_caps, wire_rows
 from ..ops.residue_sym import expand_submap, pack_bits
+from ..ops.residue_values import residue_gather
+from ..setup.mode import window_geometry
 from ..utils.link import d2h_rate_estimate
 
 #: outputs of the fused body (models/pipeline.py _fused_body)
 OUTPUTS = ("f32", "s16", "s16p", "s16d", "s16df")
 #: the dpack wire outputs: soft ("s16d") and full ("s16df") capacity
 DPACK = ("s16d", "s16df")
+#: floor wire of a floor group -> its wrapper in ops.floor
+FLOORS = {"ys": floor1_from_ys, "posts": floor1_from_posts,
+          "floor0": floor0_curves}
 
 
 class OlaUnsupported(BatchUnsupported):
@@ -179,8 +191,6 @@ class BatchSynthesizer(nn.Module):
         or under "auto" whether the measured device->host rate
         (utils/link.py; +inf for the CPU) is below
         s16_rice_threshold_mbps."""
-        from vorbispizza_tpu.config import VorbisConfig
-
         cfg = VorbisConfig.default
         if cfg.s16_rice == "on":
             return True
@@ -203,8 +213,6 @@ class BatchSynthesizer(nn.Module):
     @staticmethod
     def _group_meta(bucket: BucketBatch, pads: dict | None = None):
         """Static floor metadata per floor group (part of the sig)."""
-        from vorbispizza_tpu.config import VorbisConfig
-
         metas = []
         for gi, g in enumerate(bucket.floor_groups):
             if g.floor.floor_type == 1:
@@ -382,8 +390,6 @@ class BatchSynthesizer(nn.Module):
         cached = self._cache.get(("symstatic", key))
         if cached is not None:
             return cached
-        from vorbispizza_tpu.native.symbols import _vec_shape
-
         setup = self._setup_for(key)
         mode = setup.modes[key.mode_idx]
         mapping = setup.mappings[mode.mapping_idx]
@@ -772,10 +778,10 @@ class BatchSynthesizer(nn.Module):
     def residue_calls(self, bk) -> list:
         """(ch_list, args of ops.residue_sym.expand_submap) per coded
         submap of bucket ``bk``, or (ch_list, None) for a submap with no
-        coded region (zeros)."""
+        coded region (zeros); none for a value-transport bucket."""
         pn, e, take = bk["pn"], bk["e"], bk["take"]
         if pn[2] != "sym":
-            raise NotImplementedError("value-transport residues are not ported")
+            return []
         calls = []
         for si, ss in enumerate(pn[3]):
             sub = bk["tables"]["subs"][si]
@@ -794,35 +800,65 @@ class BatchSynthesizer(nn.Module):
             calls.append((sub["ch_list"], args))
         return calls
 
+    def value_call(self, bk):
+        """Args of ops.residue_values.residue_gather for a value-transport
+        bucket ``bk``; None for a symbol-transport one."""
+        pn, e, take = bk["pn"], bk["e"], bk["take"]
+        if pn[2] == "sym":
+            return None
+        _, _, _, ptag, gtag = pn
+        return (take(e["packed"]), take(e["gmap"]), ptag, gtag,
+                (bk["Fp"], self.channels, bk["n"] // 2))
+
+    def residues(self, bk) -> torch.Tensor:
+        """[Fp, C, half] residues of bucket ``bk`` (K1 per coded submap, or
+        K9 for the value-transport wire)."""
+        args = self.value_call(bk)
+        if args is not None:
+            return residue_gather(*args)
+        return self.place(bk, [
+            (ch, None if a is None else expand_submap(*a))
+            for ch, a in self.residue_calls(bk)
+        ])
+
     def floor_calls(self, bk) -> list:
-        """(channels, args of ops.floor.floor1_from_ys) per floor group of
-        bucket ``bk``."""
+        """(channels, wire, args of FLOORS[wire]) per floor group of bucket
+        ``bk``: wire "ys" or "posts" for floor1, "floor0" for floor0."""
         calls = []
         take = bk["take"]
+        half = bk["n"] // 2
         for meta, g, tab in zip(bk["metas"], bk["e"]["groups"],
                                 bk["tables"]["floors"]):
-            if meta["type"] != 1:
-                raise NotImplementedError("floor0 is not ported")
-            if "ys01" not in g:
-                raise NotImplementedError(
-                    "the floor1 posts/step2 wire is not ported"
-                )
+            ch = list(meta["channels"])
+            if meta["type"] == 0:
+                calls.append((ch, "floor0", (
+                    take(g["coefficients"]), take(g["amplitude"]),
+                    take(g["used"]), tab, meta["order"],
+                    meta["amplitude_bits"], meta["amplitude_offset"],
+                )))
+                continue
             P = len(meta["xs"])
-            calls.append((
-                list(meta["channels"]),
-                (
+            if "ys01" in g:
+                calls.append((ch, "ys", (
                     take(g["ys01"]),
                     take(g["ysmask"]) if P > 2 else None,
                     take(g["ysnz"]) if P > 2 else None,
-                    take(g["used"]),
-                    tab,
-                    bk["tables"]["ab"],
-                    P,
-                    meta["multiplier"],
-                    bk["n"] // 2,
-                ),
-            ))
+                    take(g["used"]), tab, bk["tables"]["ab"], P,
+                    meta["multiplier"], half,
+                )))
+            else:
+                calls.append((ch, "posts", (
+                    take(g["posts"]), take(g["step2"]), take(g["used"]), tab,
+                    bk["tables"]["ab"], P, meta["multiplier"], half,
+                )))
         return calls
+
+    def floors(self, bk) -> torch.Tensor:
+        """[Fp, C, half] floor curves of bucket ``bk``."""
+        return self.place(bk, [
+            (ch, FLOORS[wire](*args))
+            for ch, wire, args in self.floor_calls(bk)
+        ])
 
     def place(self, bk, parts) -> torch.Tensor:
         """[Fp, C, half] from per-channel-group parts [(channels, [Fp, nc,
@@ -862,14 +898,8 @@ class BatchSynthesizer(nn.Module):
         ``total`` columns)."""
         ola_buckets = []
         for bk in self.buckets(sig, bufs):
-            residues = self.place(bk, [
-                (ch, None if args is None else expand_submap(*args))
-                for ch, args in self.residue_calls(bk)
-            ])
-            floors = self.place(bk, [
-                (ch, floor1_from_ys(*args)) for ch, args in self.floor_calls(bk)
-            ])
-            spectra = couple_spectrum(residues, floors, bk["tables"]["steps"])
+            spectra = couple_spectrum(self.residues(bk), self.floors(bk),
+                                      bk["tables"]["steps"])
             ola_buckets.append(self.ola_bucket(bk, self.dct(bk, spectra)))
         output = sig[5]
         mode = "s16" if output in DPACK else output
@@ -886,8 +916,10 @@ def device_tables(synth: BatchSynthesizer, key, device) -> dict:
 
     window [n] f32; dct (hi, lo) [n/2, n/2] f32; steps int32 [S, 2]
     (coupling); subs: per submap ch_list and VQ tables [entries+1, d] f32
-    (zero row last); floors: per floor group the floor1 int32 table
-    (ops/floor.floor1_tables; None for floor0); ab [32] f32 (A then B)."""
+    (zero row last); floors: per floor group its static table, int32 for
+    floor1 (ops/floor.floor1_tables) and f32 [3, half] for floor0
+    (ops/floor.floor0_tables: cos_w and the two tail factors); ab [32] f32
+    (A then B)."""
     device = torch.device(device)
     ck = ("tables", key, str(device))
     cached = synth._cache.get(ck)
@@ -910,7 +942,8 @@ def device_tables(synth: BatchSynthesizer, key, device) -> dict:
             )
     floors = [
         put(floor1_tables(g.floor.xs, half)) if g.floor.floor_type == 1
-        else None
+        else put(floor0_tables(g.floor._maps[n], g.floor.bark_map_size,
+                               g.floor.order))
         for g in _bucket_groups(mapping, synth.channels)
     ]
     hi, lo = dct_iv_basis(half)

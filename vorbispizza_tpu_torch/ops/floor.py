@@ -1,14 +1,20 @@
-"""Floor1 curves from the coded-ys wire (kernel K2 and its twin).
+"""Floor curves: floor1 from either wire (kernel K2) and floor0 (K8).
 
-Port of three stages of vorbispizza_tpu: the ys rebuild of
+Floor1 ports three stages of vorbispizza_tpu: the ys rebuild of
 models/pipeline.py ``_fused_body`` (zero bitmask + compacted nonzero u8
 stream -> coded values), ops/floor.py ``floor1_unwrap`` (spec 7.2.2
 amplitude synthesis) and ops/floor.py ``floor1_curves`` (spec 9.2.6 line
 render + inverse-dB lookup). Everything is integer arithmetic up to the
 final ``A[v>>4] * B[v&15]`` float32 product, which the reference computes
-the same way, so the port is bit-identical to it.
+the same way, so the port is bit-identical to it. The posts/step2 wire
+(``floor1_from_posts``, K2's posts mode) skips the rebuild and the unwrap:
+the host ships the unwrapped posts and the step2 bits.
 
-Floor0 and the posts/step2 floor1 wire are not ported yet.
+Floor0 ports ops/floor.py ``floor0_curves`` (spec 6.2.3 LSP product, then
+exp of the amplitude term), in the reference's order of float32
+operations. Its cos/exp roundings differ between math libraries, so the
+port agrees with the reference to ~1e-4 relative, not bit for bit; K8 and
+its twin use the same operations in the same order.
 """
 
 from __future__ import annotations
@@ -176,6 +182,57 @@ def floor1_from_ys_plain(ys01, ysmask, ysnz, used, tab, ab, P: int,
                                half)
 
 
+def step2_bits(step2: torch.Tensor, P: int) -> torch.Tensor:
+    """[G, ceil(P/8)] LSB-first step2 bit planes -> bool [G, P]
+    (pipeline.py posts/step2 wire)."""
+    shifts = torch.arange(8, device=step2.device, dtype=torch.int32)
+    bits = (step2.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(step2.shape[0], -1)[:, :P].bool()
+
+
+def floor1_from_posts_plain(posts, step2, used, tab, ab, P: int,
+                            multiplier: int, half: int):
+    """Floor curves [G, half] float32 from the posts wire (plain twin of
+    K2's posts mode): the shipped posts as they are, the step2 bits
+    unpacked, then ``floor1_curves_plain``."""
+    G = used.numel()
+    return floor1_curves_plain(
+        posts.reshape(G, P).to(torch.int64), step2_bits(step2.reshape(G, -1), P),
+        used, tab, ab, P, multiplier, half)
+
+
+def floor1_from_posts(posts, step2, used, tab, ab, P: int, multiplier: int,
+                      half: int):
+    """``floor1_from_posts_plain`` for CPU tensors; K2's posts mode for CUDA
+    ones (counted as "floor1_posts").
+
+    posts u8 [G, P]; step2 u8 [G, ceil(P/8)] (LSB-first over P); used u8
+    [G]; ``tab`` from floor1_tables; ``ab`` from inverse_db_tables."""
+    if posts.device.type == "cpu":
+        return floor1_from_posts_plain(posts, step2, used, tab, ab, P,
+                                       multiplier, half)
+    if not 2 <= P <= MAX_POSTS:
+        raise ValueError(f"floor1 with {P} posts (K2 holds 2..{MAX_POSTS})")
+    G = used.numel()
+    posts = posts.reshape(G, P)
+    step2 = step2.reshape(G, (P + 7) // 8)
+    used = used.reshape(G)
+    K.require_cuda(posts, step2, used, tab, ab)
+    if posts.dtype != torch.uint8 or step2.dtype != torch.uint8:
+        raise TypeError("expected u8 posts and step2 bits")
+    if tab.dtype != torch.int32 or ab.dtype != torch.float32:
+        raise TypeError("expected int32 tables and float32 A/B")
+    out = torch.empty((G, half), dtype=torch.float32, device=posts.device)
+    if G:
+        K.launch(
+            "floor1_posts",
+            posts.data_ptr(), step2.data_ptr(), used.data_ptr(),
+            tab.data_ptr(), ab.data_ptr(), out.data_ptr(),
+            G, P, half, multiplier,
+        )
+    return out
+
+
 def floor1_from_ys(ys01, ysmask, ysnz, used, tab, ab, P: int,
                    multiplier: int, half: int):
     """``floor1_from_ys_plain`` for CPU tensors; kernel K2 for CUDA ones.
@@ -209,5 +266,97 @@ def floor1_from_ys(ys01, ysmask, ysnz, used, tab, ab, P: int,
             rank.data_ptr(), used.data_ptr(), tab.data_ptr(), ab.data_ptr(),
             out.data_ptr(),
             G, P, half, multiplier, RANGES[multiplier - 1], cap,
+        )
+    return out
+
+
+#: floor0 orders K8 holds in shared memory (the 8-bit field allows 255)
+MAX_ORDER = 255
+
+
+def floor0_tables(bark_map, bark_map_size: int, order: int) -> np.ndarray:
+    """Static float32 tables of one floor0 config at one blocksize, [3,
+    half]: cos_w (made in float64, then cast, as ops/floor.py
+    floor0_curves makes it), then the tail factors of p and of q: for an
+    odd order 1 - cos_w^2 and 0.25, for an even one (1 - cos_w) * 0.5 and
+    (1 + cos_w) * 0.5, in float32 as the reference's program computes
+    them from cos_w."""
+    m = np.asarray(bark_map, dtype=np.float64)
+    cos_w = np.cos(np.pi * m / bark_map_size).astype(np.float32)
+    one, half_ = np.float32(1.0), np.float32(0.5)
+    if order % 2 == 1:
+        tp = one - cos_w * cos_w
+        tq = np.full_like(cos_w, np.float32(0.25))
+    else:
+        tp = (one - cos_w) * half_
+        tq = (one + cos_w) * half_
+    return np.stack([cos_w, tp, tq]).astype(np.float32)
+
+
+def floor0_curves_plain(coefficients, amplitude, used, tab, order: int,
+                        amplitude_bits: int, amplitude_offset: int):
+    """LSP floor curves [G, half] float32 (plain twin of K8; ops/floor.py
+    floor0_curves, the same float32 operations in the same order).
+
+    coefficients f32 [G, order]; amplitude i32 [G]; used u8 [G]; ``tab``
+    from floor0_tables."""
+    f32 = torch.float32
+    G = used.numel()
+    cos_w, tail_p, tail_q = tab[0], tab[1], tab[2]
+    cos_c = torch.cos(coefficients.reshape(G, order))
+    p = torch.ones((G, cos_w.shape[0]), dtype=f32, device=cos_w.device)
+    q = torch.ones_like(p)
+    four = torch.tensor(4.0, dtype=f32, device=cos_w.device)
+    for j in range(order):
+        d = cos_c[:, j : j + 1] - cos_w[None, :]
+        t = four * (d * d)
+        if j % 2 == 1:
+            p = p * t
+        else:
+            q = q * t
+    p = p * tail_p[None, :]
+    q = q * tail_q[None, :]
+    denom = torch.sqrt(p + q)
+    denom = torch.where(denom == 0.0, torch.tensor(1e-9, dtype=f32,
+                                                    device=denom.device), denom)
+    amp_max = torch.tensor(float((1 << amplitude_bits) - 1), dtype=f32,
+                           device=denom.device)
+    off = torch.tensor(float(amplitude_offset), dtype=f32, device=denom.device)
+    amp = amplitude.reshape(G).to(f32)[:, None]
+    exponent = torch.tensor(0.11512925, dtype=f32, device=denom.device) * (
+        (amp * off) / (amp_max * denom) - off
+    )
+    linear = torch.exp(torch.minimum(
+        exponent, torch.tensor(80.0, dtype=f32, device=denom.device)))
+    return torch.where(used.reshape(G, 1).bool(), linear, 0.0)
+
+
+def floor0_curves(coefficients, amplitude, used, tab, order: int,
+                  amplitude_bits: int, amplitude_offset: int):
+    """``floor0_curves_plain`` for CPU tensors; kernel K8 for CUDA ones."""
+    if used.device.type == "cpu":
+        return floor0_curves_plain(coefficients, amplitude, used, tab, order,
+                                   amplitude_bits, amplitude_offset)
+    if not 1 <= order <= MAX_ORDER:
+        raise ValueError(f"floor0 order {order} (K8 holds 1..{MAX_ORDER})")
+    G = used.numel()
+    half = tab.shape[1]
+    coefficients = coefficients.reshape(G, order)
+    amplitude = amplitude.reshape(G)
+    used = used.reshape(G)
+    K.require_cuda(coefficients, amplitude, used, tab)
+    if (coefficients.dtype != torch.float32 or tab.dtype != torch.float32
+            or amplitude.dtype != torch.int32 or used.dtype != torch.uint8):
+        raise TypeError("expected f32 coefficients and tables, i32 amplitude "
+                        "and u8 used")
+    out = torch.empty((G, half), dtype=torch.float32, device=used.device)
+    if G:
+        K.launch(
+            "floor0_synth",
+            coefficients.data_ptr(), amplitude.data_ptr(), used.data_ptr(),
+            tab[0].data_ptr(), tab[1].data_ptr(), out.data_ptr(),
+            G, order, half,
+            float(np.float32((1 << amplitude_bits) - 1)),
+            float(np.float32(amplitude_offset)),
         )
     return out

@@ -37,12 +37,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vorbispizza_tpu.decoder import CLIP_MAX
-
+from .. import native
+from ..decoder import CLIP_MAX
 from ..kernels import build as K
 
 #: allowed block bit-widths (u32-word-multiple block sizes); must match
-#: vp_unpack_pcm's table in vorbispizza_tpu/native/frontend.cpp
+#: vp_unpack_pcm's table in native/frontend.cpp
 WIDTHS = (0, 1, 2, 3, 4, 5, 6, 8, 10, 12, 15, 18)
 BLOCK = 128
 MAX_W = WIDTHS[-1]
@@ -504,10 +504,8 @@ def check_sections(nb: int, plane_cap: int, ch_ubit: np.ndarray,
 def unpack_pcm(packed: np.ndarray, widx: np.ndarray, C: int, L: int,
                ch_ubit: np.ndarray | None = None) -> np.ndarray:
     """Host unpack -> int16 [C, L]: the threaded C++ unpacker
-    (vorbispizza_tpu.native.unpack_pcm) when its library is present, else
-    the numpy copy below. A wire the C++ side rejects raises."""
-    from vorbispizza_tpu import native
-
+    (native.unpack_pcm) when its library is present, else the numpy copy
+    below. A wire the C++ side rejects raises."""
     if native.available():
         out = native.unpack_pcm(packed, widx, C, L, ch_ubit)
         if out is not None:

@@ -19,8 +19,8 @@ import pathlib
 ROOT = pathlib.Path(__file__).resolve().parents[2] / "testdata" / "corpus32"
 
 RECIPE = {
-    "encoder": "vorbispizza_tpu.testing.encode.encode_vorbis",
-    "signal": "vorbispizza_tpu.testing.encode.make_signal",
+    "encoder": "vorbispizza_tpu_torch.testing.encode.encode_vorbis",
+    "signal": "vorbispizza_tpu_torch.testing.encode.make_signal",
     "streams": 32,
     "seeds": "0..31",
     "channels": 2,
@@ -37,7 +37,7 @@ def member_name(seed: int) -> str:
 
 def encode_member(seed: int) -> bytes:
     """Encode member ``seed`` with the recipe (needs libvorbisenc)."""
-    from vorbispizza_tpu.testing.encode import encode_vorbis, make_signal
+    from .encode import encode_vorbis, make_signal
 
     r = RECIPE
     return encode_vorbis(

@@ -1,6 +1,6 @@
 """Small deterministic test streams, built the way the JAX package's
 ``__graft_entry__.entry()`` builds its example chunk (libvorbisenc music
-signals), plus spec-corner raw streams (vorbispizza_tpu/testing/rawstream).
+signals), plus spec-corner raw streams (testing/rawstream.py).
 
 Groups:
   stereo   two 1 s stereo streams at q0.3 and q0.5 (two setups, one chunk)
@@ -29,8 +29,8 @@ def vorbisenc_available() -> bool:
 
 @lru_cache(maxsize=None)
 def make_streams(group: str) -> tuple[bytes, ...]:
-    from vorbispizza_tpu.testing import rawstream
-    from vorbispizza_tpu.testing.encode import encode_vorbis, make_signal
+    from . import rawstream
+    from .encode import encode_vorbis, make_signal
 
     if group == "stereo":
         return tuple(
