@@ -19,7 +19,9 @@ nothing of the JAX package: the float64 anchor is the port's own
    planes) and K7 (unary) in both rice modes on it prepared as "s16df";
    K2's posts mode and K9 (value residues) on it prepared under the
    fallback config (floor1_wire="posts", residue_transport="values");
-   K8 (floor0) on the floor0 corpus's chunk. All are held with
+   K1 (format 0) and K8 (floor0) on the floor0 corpus's chunk. K1 runs
+   once a bucket, K2 as its rank kernel then its main kernel. All are
+   held with
    ``torch.equal`` (K8's twin takes K8's steps in K8's order, with the
    card's own cos/sqrt/exp; on a miss its max ulp distance and the share
    of values that differ are printed);
@@ -40,9 +42,17 @@ nothing of the JAX package: the float64 anchor is the port's own
    bit-equal to the symbol wire's;
 5. once the CPU workers of phases 3-4 have stopped: each kernel's time,
    its twin's and, where one PyTorch call computes the same function,
-   that call's (CUDA events, at phase 3's inputs); then one warm and
+   that call's (CUDA events around 20 calls after a warm one, at phase
+   3's inputs: ``ms``, the host's wall per call), and the DCT-IV product's
+   (``torch.matmul``, against its bound by operations); then the kernel's
+   20 calls again under torch.profiler: ``device_ms``, the device time
+   per call of the kernel's own CUDA kernels, ``device_all_ms`` of every
+   device op of the call, and ``device_launches``, the device ops per
+   call (fills and scans around the kernel included). Then one warm and
    three timed runs each of the default f32 and s16, the fallback s16 and
-   the floor0 f32: realtime factor, stage walls and device->host bytes.
+   the floor0 f32: realtime factor, stage walls and device->host bytes;
+   and one more s16 run under torch.profiler: the device's busy and idle
+   share of its window and its top device ops by time.
 
 Any failure raises (exit code 1). Without CUDA, or without the package
 beside it, it exits 2 and prints no result. The last two lines are the
@@ -63,6 +73,7 @@ FLOOR0_LSB = 2  # floor0 s16: at most FLOOR0_SHARE of a stream's samples
 FLOOR0_SHARE = 1e-3  # more than FLOOR0_LSB off the quantized anchor
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+REPS = 20  # timed calls of each kernel's wrapper
 FALLBACK = {"floor1_wire": "posts", "residue_transport": "values"}
 KERNELS = {
     # name: (source, reference stage it replaces, run its launches are
@@ -150,8 +161,9 @@ def configured(**settings):
             setattr(cfg, k, v)
 
 
-def _cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn`` in ms over ``reps`` runs (CUDA events)."""
+def _cuda_ms(fn, reps: int = REPS) -> float:
+    """Mean time of ``fn`` in ms over ``reps`` runs between two CUDA
+    events: the host's enqueue as much as the card, for a small call."""
     import torch
 
     fn()
@@ -164,6 +176,97 @@ def _cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _is_device(evt) -> bool:
+    from torch.autograd import DeviceType
+
+    return evt.device_type == DeviceType.CUDA
+
+
+def _device_us(row) -> float:
+    """Device time in us of a ``key_averages()`` row (the attribute was
+    renamed between torch versions)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(row, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def _profile(fn, reps: int = REPS, tries: int = 2) -> dict:
+    """``fn`` ``reps`` times under torch.profiler (CPU and CUDA activity)
+    after a warm call: {device op name: (device us summed over the reps,
+    launches)}, from ``key_averages()``. A trace with no device op (the
+    H100's tracer can drop one) is taken again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = {r.key: (_device_us(r), r.count) for r in prof.key_averages()
+               if _is_device(r)}
+        if ops:
+            break
+    return ops
+
+
+def _profile_run(run_fn, top: int = 10, tries: int = 3) -> dict:
+    """One decode (``run_fn`` returns its outputs) under torch.profiler:
+    the device's busy and idle share of the call's host window (the union
+    of every device kernel, copy and fill interval inside it) and its top
+    device ops by time. The window is the profiled call's, so it holds the
+    profiler's own host overhead. A trace that lost a chunk's kernels
+    (it holds fewer K4 launches than the decode's chunks: the H100's
+    tracer can drop some) is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tag = "vp_profiled_run"
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(tag):
+                chunks = run_fn().stats["chunks"]
+        evs = prof.events()
+        k4 = sum(1 for e in evs if _is_device(e) and "ola_assemble" in e.name)
+        if k4 >= chunks:
+            break
+        print(f"  profiled run {attempt}: the trace holds {k4} of {chunks} "
+              f"chunks' K4 launches; taken again", flush=True)
+    win = [e.time_range for e in evs if e.name == tag and not _is_device(e)]
+    dev = [e for e in evs if _is_device(e) and e.name != tag
+           and not getattr(e, "is_user_annotation", False)]
+    if not win or not dev:
+        return {}
+    t0, t1 = win[0].start, win[0].end
+    busy, cur = 0.0, None
+    for s, e in sorted((max(d.time_range.start, t0), min(d.time_range.end, t1))
+                       for d in dev):
+        if e <= s:
+            continue
+        if cur is None or s > cur[1]:
+            busy += cur[1] - cur[0] if cur else 0.0
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    busy += cur[1] - cur[0] if cur else 0.0
+    by_name: dict = {}
+    for d in dev:
+        us, n = by_name.get(d.name, (0.0, 0))
+        by_name[d.name] = (us + d.time_range.elapsed_us(), n + 1)
+    tops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"chunks": chunks, "chunks_traced": k4,
+            "window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (t1 - t0), "idle_share": 1 - busy / (t1 - t0),
+            "device_ops": len(dev),
+            "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
+                    for k, (us, n) in tops]}
 
 
 def _nbytes(tensors) -> int:
@@ -183,13 +286,15 @@ def _bound(in_bytes: int, out_bytes: int, ops: int) -> dict:
 
 
 def _compare(name, kernel_fn, plain_fn, inputs, ops, view_k=None,
-             view_p=None, library_fn=None, check=None):
+             view_p=None, library_fn=None, check=None, kernel=None):
     """Run both on the same inputs; assert bit-equality of their outputs
     (or ``check(got, want)``, which returns a note); bound the work from
     ``inputs``, the compared outputs and ``ops`` (a function of the
     outputs). The result keeps the functions to time (``_time`` times
     them once the CPU workers have stopped: host contention stretches the
-    launch gaps of these small kernels)."""
+    launch gaps of these small kernels) and ``kernel``, the part of the
+    CUDA kernel names (default ``name``) whose device time is the
+    kernel's."""
     import torch
 
     got, want = kernel_fn(), plain_fn()
@@ -209,7 +314,7 @@ def _compare(name, kernel_fn, plain_fn, inputs, ops, view_k=None,
         note = "bit-equal to its twin"
     else:
         note = check(got, want)
-    res = {"max_abs_err": err, "name": name,
+    res = {"max_abs_err": err, "name": name, "kernel": kernel or name,
            "fns": (kernel_fn, plain_fn, library_fn),
            **_bound(_nbytes(inputs), _nbytes(got), ops(got))}
     print(f"  {name}: {note} over {len(got)} outputs; bound "
@@ -219,14 +324,51 @@ def _compare(name, kernel_fn, plain_fn, inputs, ops, view_k=None,
 
 
 def _time(res) -> None:
-    """Time a ``_compare`` result's kernel, twin and library call."""
+    """Time a ``_compare`` result's kernel, twin and library call with CUDA
+    events (``ms``: the host's wall per call); then the wrapper's calls
+    again under torch.profiler: ``device_ms``, the device time per call of
+    the CUDA kernels named ``res["kernel"]``; ``device_all_ms``, of every
+    device op the call makes; ``device_launches``, how many device ops
+    (kernels, fills, copies) the call makes."""
     kernel_fn, plain_fn, library_fn = res.pop("fns")
-    res["ms"], res["plain_ms"] = _cuda_ms(kernel_fn), _cuda_ms(plain_fn)
+    res["ms"] = _cuda_ms(kernel_fn)
+    res["plain_ms"] = _cuda_ms(plain_fn) if plain_fn else None
     res["library_ms"] = _cuda_ms(library_fn) if library_fn else None
+    ops = _profile(kernel_fn)
+    mine = {k: v for k, v in ops.items() if res["kernel"] in k}
+    if mine:
+        res["device_ms"] = sum(us for us, _ in mine.values()) / REPS / 1e3
+        res["device_all_ms"] = sum(us for us, _ in ops.values()) / REPS / 1e3
+        res["device_launches"] = sum(n for _, n in ops.values()) / REPS
+        dev = (f"; device {res['device_ms']:.4f} ms ({res['device_all_ms']:.4f}"
+               f" ms in all {res['device_launches']:g} device ops a call)")
+        if len(mine) > 1:
+            dev += " [" + "; ".join(
+                f"{k.split('(')[0][:40]} {us / REPS / 1e3:.4f} ms"
+                for k, (us, _) in sorted(mine.items())) + "]"
+    else:
+        res["device_ms"] = res["device_all_ms"] = "not measured"
+        res["device_launches"] = "not measured"
+        dev = (f"; device_ms: not measured (the profiler showed "
+               f"{sorted(ops)[:6]})")
+    plain = (f", plain {res['plain_ms']:.4f} ms" if plain_fn else "")
     lib = (f", library {res['library_ms']:.4f} ms" if library_fn else "")
-    print(f"  {res['name']}: kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f} ms{lib}; bound {res['bound_ms']:.4f} ms",
-          flush=True)
+    print(f"  {res['name']}: kernel {res['ms']:.4f} ms{plain}{lib}{dev}; "
+          f"bound {res['bound_ms']:.4f} ms", flush=True)
+
+
+def _print_profile(name, prof, card) -> None:
+    if not prof:
+        print(f"  [{name}] profiled run: the profiler showed no device "
+              f"ops; device_ms: not measured", flush=True)
+        return
+    print(f"  [{name}] profiled run: window {prof['window_ms']:.3f} ms, "
+          f"device busy {prof['busy_ms']:.3f} ms ({prof['busy_share']:.4f}), "
+          f"idle share {prof['idle_share']:.4f}, {prof['device_ops']} device "
+          f"ops [{card}]", flush=True)
+    for t in prof["top"]:
+        print(f"    {t['ms']:9.3f} ms {t['count']:5d}x  {t['name']}")
+    print("  profile " + json.dumps({"run": name, **prof}), flush=True)
 
 
 def _numel(outs) -> int:
@@ -274,27 +416,17 @@ def _chunk(corpus, dev, output="f32", **settings):
 
 def check_kernels(corpus, dev):
     """Phase 3: K1-K4 at the first chunk's shapes."""
-    from vorbispizza_tpu_torch.ops import coupling, floor, ola, residue_sym
+    from vorbispizza_tpu_torch.ops import coupling, floor, ola
 
     synth, sig, bufs, bks = _chunk(corpus, dev)
-    res_calls = [a for bk in bks for _, a in synth.residue_calls(bk)
-                 if a is not None]
     flo_calls = [a for bk in bks for _, w, a in synth.floor_calls(bk)]
-    out = {}
-    out["residue_expand"] = _compare(
-        "residue_expand",
-        lambda: [residue_sym.expand_submap(*a) for a in res_calls],
-        lambda: [residue_sym.expand_submap_plain(*a[:5]) for a in res_calls],
-        inputs=[t for a in res_calls for t in (*a[1], *a[2], *a[3])],
-        ops=lambda _: sum(g[4] * g[2] * g[1] for a in res_calls
-                          for g in a[0][7]),
-    )
+    out = {"residue_expand": _check_k1("residue_expand", synth, bks)}
     out["floor1_synth"] = _compare(
         "floor1_synth",
         lambda: [floor.floor1_from_ys(*a) for a in flo_calls],
         lambda: [floor.floor1_from_ys_plain(*a) for a in flo_calls],
         inputs=[t for a in flo_calls for t in a[:6]],
-        ops=lambda o: 8 * _numel(o),
+        ops=lambda o: 8 * _numel(o), kernel="floor1_",
     )
     stage = [(bk, synth.residues(bk), synth.floors(bk), bk["tables"]["steps"])
              for bk in bks]
@@ -307,10 +439,9 @@ def check_kernels(corpus, dev):
         ops=lambda o: sum(r.numel() * (1 + s.shape[0])
                           for _, r, _f, s in stage),
     )
-    ola_bks = [
-        synth.ola_bucket(bk, synth.dct(bk, coupling.couple_spectrum(r, f, s)))
-        for bk, r, f, s in stage
-    ]
+    spectra = [(bk, coupling.couple_spectrum(r, f, s)) for bk, r, f, s in stage]
+    out["dct_iv"] = _dct_row(synth, spectra)
+    ola_bks = [synth.ola_bucket(bk, synth.dct(bk, sp)) for bk, sp in spectra]
     evs = bufs[4:9]
     out["ola_assemble"] = _compare(
         "ola_assemble",
@@ -321,6 +452,50 @@ def check_kernels(corpus, dev):
     )
     out.update(check_s16_kernels(corpus, dev))
     return out
+
+
+def _check_k1(name, synth, bks):
+    """K1 over every bucket of a chunk (one launch a bucket) against the
+    twin that walks the same descriptor tables. The work: the applied
+    partitions' symbol and index streams, the VQ tables and the tables
+    in; the [Fp, C, half] residues out; a product per covered column."""
+    from vorbispizza_tpu_torch.ops import residue_sym
+
+    calls = [synth.residue_call(bk) for bk in bks]
+    subs = [a for bk in bks for _, a in synth.residue_calls(bk)
+            if a is not None]
+    print(f"  {name}: {len(calls)} launches, "
+          f"{sum(c[1] for c in calls)} groups, "
+          f"{sum(c[2] for c in calls)} blocks", flush=True)
+    return _compare(
+        name,
+        lambda: [residue_sym.expand_bucket(*c) for c in calls],
+        lambda: [residue_sym.expand_bucket_plain(*c) for c in calls],
+        inputs=[t for a in subs for t in (*a[1], *a[2], *a[3])]
+        + [c[0] for c in calls],
+        ops=lambda _: sum(g[4] * g[2] * g[1] for a in subs for g in a[0][7]),
+        kernel="residue_expand",
+    )
+
+
+def _dct_row(synth, spectra):
+    """The DCT-IV product of the chunk (``torch.matmul``, not a kernel of
+    the port): no twin to hold it against, so only its bound and, in
+    phase 5, its times. Bound by operations: two products (hi and lo) of
+    2 * rows * half^2 flops a bucket."""
+    outs = [synth.dct(bk, sp) for bk, sp in spectra]
+    res = {"max_abs_err": None, "name": "dct_iv (torch.matmul)", "kernel": "",
+           "fns": (lambda: [synth.dct(bk, sp) for bk, sp in spectra], None,
+                   None),
+           **_bound(_nbytes([t for bk, sp in spectra
+                             for t in (sp, *bk["tables"]["dct"])]),
+                    _nbytes(outs),
+                    sum(4 * sp.shape[0] * sp.shape[1] * sp.shape[2] ** 2
+                        for _, sp in spectra))}
+    print(f"  {res['name']}: bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']} ({res['bytes']} B, {res['ops']} flops)",
+          flush=True)
+    return res
 
 
 def check_s16_kernels(corpus, dev):
@@ -343,7 +518,7 @@ def check_s16_kernels(corpus, dev):
             "ola_assemble_" + mode,
             lambda m=mode: [ola.ola_assemble(obks, evs, L, m)],
             lambda m=mode: [ola.ola_assemble_plain(obks, evs, L, m)],
-            inputs=ola_in, ops=lambda o: 4 * C * L,
+            inputs=ola_in, ops=lambda o: 4 * C * L, kernel="ola_assemble",
         )
     q = ola.ola_assemble(obks, evs, L, "s16")
     print(f"  dpack wire: C {C}, L {L}, NBt {pp.wire_rows(L, C)}", flush=True)
@@ -374,7 +549,7 @@ def _check_dpack(q, rice, dev):
         "dpack_select" + tag,
         lambda: list(pp.dpack_select(q, rice, out=wview)),
         lambda: list(pp.dpack_select_plain(q, rice)),
-        inputs=[q], ops=lambda _: 32 * q.numel(),
+        inputs=[q], ops=lambda _: 32 * q.numel(), kernel="dpack_select",
     )
     wbyte, ubits = pp.dpack_select(q, rice, out=wview)
     scan = pp.dpack_scan(wbyte, ubits, urow, rice)
@@ -385,7 +560,7 @@ def _check_dpack(q, rice, dev):
         lambda: pp.dpack_pack(q, wire, scan, cap, rice),
         lambda: pp.dpack_pack_plain(q, wbyte, scan, cap, rice),
         inputs=[q, wbyte, *scan.values()], ops=lambda _: 8 * q.numel(),
-        view_k=lambda _: [wire[:n_k6]],
+        kernel="dpack_pack", view_k=lambda _: [wire[:n_k6]],
         view_p=lambda w: [w[:n_k6]],
     )
     if rice:
@@ -395,7 +570,7 @@ def _check_dpack(q, rice, dev):
             lambda: pp.dpack_unary(q, wire, scan, cap, ucap, urow),
             lambda: pp.dpack_unary_plain(q, wbyte, ucap, urow),
             inputs=[q, wbyte, *scan.values()],
-            ops=lambda _: 8 * q.numel(),
+            ops=lambda _: 8 * q.numel(), kernel="dpack_unary",
             view_k=lambda _: [wire[n_k6 : n_k6 + ub]],
             view_p=lambda u: [u[:ub]],
         )
@@ -433,7 +608,7 @@ def check_fallback_kernels(corpus, dev):
         lambda: [floor.floor1_from_posts(*a) for a in posts],
         lambda: [floor.floor1_from_posts_plain(*a) for a in posts],
         inputs=[t for a in posts for t in a[:5]],
-        ops=lambda o: 8 * _numel(o),
+        ops=lambda o: 8 * _numel(o), kernel="floor1_",
     )
     idx = [rv.row_index(a[1], a[3]) for a in vals]
     out["residue_gather"] = _compare(
@@ -476,7 +651,9 @@ def check_floor0_kernel(corpus, dev):
              if w == "floor0"]
     if not calls:
         raise AssertionError("the floor0 chunk has no floor0 group")
-    return {"floor0_synth": _compare(
+    return {"residue_expand_f0": _check_k1("residue_expand (floor0 chunk, "
+                                          "format 0)", synth, bks),
+            "floor0_synth": _compare(
         "floor0_synth",
         lambda: [floor.floor0_curves(*a) for a in calls],
         lambda: [floor.floor0_curves_plain(*a) for a in calls],
@@ -712,10 +889,15 @@ def main() -> int:
                       f"d2h {o.stats['d2h_bytes']} B; stages "
                       f"{json.dumps(o.stats['stage_s'])} [{card}]",
                       flush=True)
-        print(f"  {name}: median realtime factor {sorted(rtfs)[1]:.1f}x "
-              f"over {seconds:.2f} s of audio [{card}]", flush=True)
+            print(f"  {name}: median realtime factor {sorted(rtfs)[1]:.1f}x "
+                  f"over {seconds:.2f} s of audio [{card}]", flush=True)
+            if name == "s16":
+                prof = _profile_run(lambda: decode_corpus(
+                    sources, device="cuda", output=output))
+                _print_profile(name, prof, card)
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    keys = ("max_abs_err", "ms", "device_ms", "device_all_ms",
+            "device_launches", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
     def entry(name):

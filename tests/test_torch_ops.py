@@ -80,13 +80,17 @@ def test_unpack_bits_matches_reference():
 
 
 def residues_both(synth, bk):
-    """[(port, reference)] residue vectors per coded submap of a bucket."""
+    """[(port, reference)] residue vectors per coded submap of a bucket:
+    the port's per-submap reference form, and K1's bucket twin (what the
+    wrapper runs for CPU tensors) at the submap's channels."""
     out = []
-    for _ch, args in synth.residue_calls(bk):
+    bucket = synth.residues(bk)
+    for ch, args in synth.residue_calls(bk):
         if args is None:
             continue
-        sub_sig, syms, idx, vqs, Fp, dev = args
-        got = residue_sym.expand_submap(*args)
+        sub_sig, syms, idx, vqs, Fp = args
+        got = residue_sym.expand_submap_plain(*args)
+        assert torch.equal(bucket[:, ch], got)
         # one jitted program per submap (op-by-op dispatch is far slower)
         want = jax.jit(
             lambda s, x: jax_expand_submap(sub_sig, s, x,
@@ -150,7 +154,7 @@ def floors_both(synth, bk, buckets):
     out = []
     for ch, w, args in synth.floor_calls(bk):
         assert w == "ys"
-        ys01, ysmask, ysnz, used, tab, ab, P, mult, half = args
+        ys01, ysmask, ysnz, used, tab, ab, P, mult, half, _lev = args
         meta = [m for m in bk["metas"] if list(m["channels"]) == ch][0]
         ys = floor.rebuild_ys(ys01, ysmask, ysnz, P)
         posts, step2 = floor.floor1_unwrap_plain(ys, tab, P, mult)

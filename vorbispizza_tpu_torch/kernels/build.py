@@ -44,8 +44,8 @@ D = ctypes.c_double
 #: C entry -> argument types (pointers and the stream last as c_void_p,
 #: every integer as int64, a float32 scalar as a double holding it)
 SIGNATURES = {
-    "vp_residue_expand": [P] * 4 + [I] * 15 + [P],
-    "vp_floor1_synth": [P] * 8 + [I] * 6 + [P],
+    "vp_residue_expand": [P] * 4 + [I] * 6 + [P],
+    "vp_floor1_synth": [P] * 9 + [I] * 6 + [P],
     "vp_floor1_posts": [P] * 6 + [I] * 4 + [P],
     "vp_floor0_synth": [P] * 6 + [I] * 3 + [D] * 2 + [P],
     "vp_residue_gather": [P] * 3 + [I] * 4 + [P],

@@ -12,8 +12,9 @@ The DEVICE half (``BatchSynthesizer.forward``) does what the reference's
 fused XLA program (``_fused_body``) does, for every residue and floor wire
 and every output of the reference:
 
-    residues: residue_sym.expand_submap (K1, symbol transport) or
-              residue_values.residue_gather (K9, value transport)
+    residues: residue_sym.expand_bucket (K1, symbol transport: one launch
+              a bucket) or residue_values.residue_gather (K9, value
+              transport)
     floors:   floor.floor1_from_ys (K2, coded-ys wire),
               floor.floor1_from_posts (K2 posts mode, posts/step2 wire) or
               floor.floor0_curves (K8, floor0)
@@ -49,13 +50,14 @@ from ..ops.floor import (
     floor0_tables,
     floor1_from_posts,
     floor1_from_ys,
+    floor1_levels,
     floor1_tables,
     inverse_db_tables,
 )
 from ..ops.imdct import dct_iv, dct_iv_basis
 from ..ops.ola import ola_assemble
 from ..ops.pcm_pack import dpack_wire, wire_caps, wire_rows
-from ..ops.residue_sym import expand_submap, pack_bits
+from ..ops.residue_sym import bucket_table, expand_bucket, pack_bits
 from ..ops.residue_values import residue_gather
 from ..setup.mode import window_geometry
 from ..utils.link import d2h_rate_estimate
@@ -385,8 +387,10 @@ class BatchSynthesizer(nn.Module):
     def _sym_static(self, key):
         """Symbol-transport structure of one bucket key (cached): per
         submap the region geometry, its groups in wire order and their VQ
-        tables (zero row appended for the end-of-packet sentinel). ``None``
-        sigs mark submaps with no channels or no coded region."""
+        tables (zero row appended for the end-of-packet sentinel), and
+        each table's (element offset, entries) in ``vq_all``, the key's
+        tables end to end (K1 reads them there). ``None`` sigs mark
+        submaps with no channels or no coded region."""
         cached = self._cache.get(("symstatic", key))
         if cached is not None:
             return cached
@@ -397,6 +401,7 @@ class BatchSynthesizer(nn.Module):
         groups_m = layout.groups_per_mapping[mode.mapping_idx]
         half = mode.n // 2
         subs = []
+        vq_at = 0
         for sm in range(mapping.submaps):
             r = mapping.submap_residue[sm]
             ch_list = [
@@ -406,7 +411,7 @@ class BatchSynthesizer(nn.Module):
             if not ch_list or Pt == 0:
                 subs.append(
                     {"sm": sm, "ch_list": ch_list, "sig": None,
-                     "gis": [], "groups": [], "vqs": []}
+                     "gis": [], "groups": [], "vqs": [], "vq_offs": []}
                 )
                 continue
             gis = [gi for gi, g in enumerate(groups_m) if g.submap == sm]
@@ -422,6 +427,10 @@ class BatchSynthesizer(nn.Module):
                 )
                 for gi in gis
             ]
+            vq_offs = []
+            for v in vqs:
+                vq_offs.append((vq_at, v.shape[0] - 1))
+                vq_at += v.size
             subs.append(
                 {
                     "sm": sm,
@@ -433,9 +442,12 @@ class BatchSynthesizer(nn.Module):
                     "gis": gis,
                     "groups": [groups_m[gi] for gi in gis],
                     "vqs": vqs,
+                    "vq_offs": vq_offs,
                 }
             )
-        res = {"subs": subs}
+        vq_all = [v.reshape(-1) for sub in subs for v in sub["vqs"]]
+        res = {"subs": subs, "vq_all": np.concatenate(
+            vq_all or [np.zeros(1, dtype=np.float32)])}
         self._cache[("symstatic", key)] = res
         return res
 
@@ -771,14 +783,43 @@ class BatchSynthesizer(nn.Module):
         return [
             {"key": key, "metas": metas, "Fp": pn[0], "n": pn[1], "e": e,
              "pn": pn, "tables": device_tables(self, key, dev), "take": take,
-             "device": dev}
-            for (key, metas), e, pn in zip(sig[0], self.entries(sig), sig[1])
+             "device": dev, "wire": typed["u8"], "k1": k1}
+            for (key, metas), e, pn, k1 in zip(
+                sig[0], self.entries(sig), sig[1], self.k1_tables(sig, dev))
         ]
 
+    def k1_tables(self, sig, device) -> list:
+        """Per bucket of ``sig``: K1's (descriptor table on ``device``,
+        n_groups, n_blocks) (ops.residue_sym.bucket_table), None for a
+        value-transport bucket. Made from the sig alone, so cached per sig
+        and sent to the card once."""
+        ck = ("k1", sig, str(device))
+        cached = self._cache.get(ck)
+        if cached is not None:
+            return cached
+        cached = []
+        for (key, _), e, pn in zip(sig[0], self.entries(sig), sig[1]):
+            if pn[2] != "sym":
+                cached.append(None)
+                continue
+            subs = [
+                (ss, [s[1] for s in e["syms"][si]],
+                 [x[1] for x in e["idx"][si]], sub["vq_offs"], sub["ch_list"])
+                for si, (ss, sub) in enumerate(
+                    zip(pn[3], self._sym_static(key)["subs"]))
+                if ss is not None
+            ]
+            table, n_groups, n_blocks = bucket_table(subs, pn[0])
+            cached.append((torch.from_numpy(table).to(device), n_groups,
+                           n_blocks))
+        self._cache[ck] = cached
+        return cached
+
     def residue_calls(self, bk) -> list:
-        """(ch_list, args of ops.residue_sym.expand_submap) per coded
+        """(ch_list, args of ops.residue_sym.expand_submap_plain) per coded
         submap of bucket ``bk``, or (ch_list, None) for a submap with no
-        coded region (zeros); none for a value-transport bucket."""
+        coded region (zeros); none for a value-transport bucket. The
+        per-submap reference form of ``residue_call``."""
         pn, e, take = bk["pn"], bk["e"], bk["take"]
         if pn[2] != "sym":
             return []
@@ -795,10 +836,17 @@ class BatchSynthesizer(nn.Module):
                     [take(x) for x in e["idx"][si]],
                     sub["vqs"],
                     bk["Fp"],
-                    bk["device"],
                 )
             calls.append((sub["ch_list"], args))
         return calls
+
+    def residue_call(self, bk):
+        """Args of ops.residue_sym.expand_bucket (K1) for a symbol-transport
+        bucket ``bk``; None for a value-transport one."""
+        if bk["k1"] is None:
+            return None
+        return (*bk["k1"], bk["wire"], bk["tables"]["vq"],
+                (bk["Fp"], self.channels, bk["n"] // 2))
 
     def value_call(self, bk):
         """Args of ops.residue_values.residue_gather for a value-transport
@@ -811,15 +859,12 @@ class BatchSynthesizer(nn.Module):
                 (bk["Fp"], self.channels, bk["n"] // 2))
 
     def residues(self, bk) -> torch.Tensor:
-        """[Fp, C, half] residues of bucket ``bk`` (K1 per coded submap, or
-        K9 for the value-transport wire)."""
-        args = self.value_call(bk)
+        """[Fp, C, half] residues of bucket ``bk`` (K1, one launch over its
+        groups, or K9 for the value-transport wire)."""
+        args = self.residue_call(bk)
         if args is not None:
-            return residue_gather(*args)
-        return self.place(bk, [
-            (ch, None if a is None else expand_submap(*a))
-            for ch, a in self.residue_calls(bk)
-        ])
+            return expand_bucket(*args)
+        return residue_gather(*self.value_call(bk))
 
     def floor_calls(self, bk) -> list:
         """(channels, wire, args of FLOORS[wire]) per floor group of bucket
@@ -827,8 +872,9 @@ class BatchSynthesizer(nn.Module):
         calls = []
         take = bk["take"]
         half = bk["n"] // 2
-        for meta, g, tab in zip(bk["metas"], bk["e"]["groups"],
-                                bk["tables"]["floors"]):
+        for meta, g, tab, lev in zip(bk["metas"], bk["e"]["groups"],
+                                     bk["tables"]["floors"],
+                                     bk["tables"]["levels"]):
             ch = list(meta["channels"])
             if meta["type"] == 0:
                 calls.append((ch, "floor0", (
@@ -844,7 +890,7 @@ class BatchSynthesizer(nn.Module):
                     take(g["ysmask"]) if P > 2 else None,
                     take(g["ysnz"]) if P > 2 else None,
                     take(g["used"]), tab, bk["tables"]["ab"], P,
-                    meta["multiplier"], half,
+                    meta["multiplier"], half, lev,
                 )))
             else:
                 calls.append((ch, "posts", (
@@ -915,11 +961,14 @@ def device_tables(synth: BatchSynthesizer, key, device) -> dict:
     cached per (key, device) — the key carries the setup id:
 
     window [n] f32; dct (hi, lo) [n/2, n/2] f32; steps int32 [S, 2]
-    (coupling); subs: per submap ch_list and VQ tables [entries+1, d] f32
-    (zero row last); floors: per floor group its static table, int32 for
+    (coupling); vq: the key's VQ tables end to end, f32 (K1 reads them
+    there; None without symbol transport); subs: per submap ch_list and
+    its VQ tables [entries+1, d] f32 (zero row last), views into vq;
+    floors: per floor group its static table, int32 for
     floor1 (ops/floor.floor1_tables) and f32 [3, half] for floor0
-    (ops/floor.floor0_tables: cos_w and the two tail factors); ab [32] f32
-    (A then B)."""
+    (ops/floor.floor0_tables: cos_w and the two tail factors); levels: per
+    floor group K2's unwrap order, int32 for floor1
+    (ops/floor.floor1_levels), None for floor0; ab [32] f32 (A then B)."""
     device = torch.device(device)
     ck = ("tables", key, str(device))
     cached = synth._cache.get(ck)
@@ -934,25 +983,32 @@ def device_tables(synth: BatchSynthesizer, key, device) -> dict:
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    subs = []
+    subs, vq = [], None
     if getattr(setup, "_sym_layout", None) is not None:
-        for sub in synth._sym_static(key)["subs"]:
-            subs.append(
-                {"ch_list": sub["ch_list"], "vqs": [put(v) for v in sub["vqs"]]}
-            )
+        st = synth._sym_static(key)
+        vq = put(st["vq_all"])
+        for sub in st["subs"]:
+            subs.append({"ch_list": sub["ch_list"], "vqs": [
+                vq[o : o + (e + 1) * v.shape[1]].view(e + 1, v.shape[1])
+                for (o, e), v in zip(sub["vq_offs"], sub["vqs"])]})
+    groups = _bucket_groups(mapping, synth.channels)
     floors = [
         put(floor1_tables(g.floor.xs, half)) if g.floor.floor_type == 1
         else put(floor0_tables(g.floor._maps[n], g.floor.bark_map_size,
                                g.floor.order))
-        for g in _bucket_groups(mapping, synth.channels)
+        for g in groups
     ]
+    levels = [put(floor1_levels(g.floor.xs)) if g.floor.floor_type == 1
+              else None for g in groups]
     hi, lo = dct_iv_basis(half)
     tables = {
         "window": put(window),
         "dct": (put(hi), put(lo)),
         "steps": put(np.asarray(steps, dtype=np.int32).reshape(-1, 2)),
         "subs": subs,
+        "vq": vq,
         "floors": floors,
+        "levels": levels,
         "ab": put(inverse_db_tables()),
     }
     synth._cache[ck] = tables

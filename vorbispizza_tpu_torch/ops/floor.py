@@ -27,8 +27,10 @@ from ..kernels import build as K
 #: floor1 range per multiplier (spec 7.2.2)
 RANGES = (256, 128, 86, 64)
 
-#: posts a K2 row can hold in shared memory (the spec allows 65)
+#: posts a K2 row can hold in shared memory (the spec allows 65), and
+#: the widest curve (blocksize 8192) whose base-post table it shares
 MAX_POSTS = 256
+MAX_HALF = 4096
 
 
 def inverse_db_tables() -> np.ndarray:
@@ -39,12 +41,9 @@ def inverse_db_tables() -> np.ndarray:
     return np.concatenate([a.astype(np.float32), b.astype(np.float32)])
 
 
-def floor1_tables(xs, half: int) -> np.ndarray:
-    """Static int32 tables of one floor1 config at one blocksize:
-    xs[P] (config order) | low_nb[P] | high_nb[P] | order[P] (config index
-    of each x-sorted post) | xs_s[P] (sorted x) | base_p[half] (largest
-    sorted post with x <= bin)."""
-    xs_np = np.asarray(xs, dtype=np.int64)
+def _neighbours(xs_np: np.ndarray):
+    """low_nb, high_nb of spec 7.2.2: for post i >= 2 the earlier post with
+    the largest x below x[i] and the one with the smallest x above it."""
     P = len(xs_np)
     low_nb = np.zeros(P, dtype=np.int64)
     high_nb = np.zeros(P, dtype=np.int64)
@@ -53,12 +52,43 @@ def floor1_tables(xs, half: int) -> np.ndarray:
         above = [j for j in range(i) if xs_np[j] > xs_np[i]]
         low_nb[i] = max(below, key=lambda j: xs_np[j])
         high_nb[i] = min(above, key=lambda j: xs_np[j])
+    return low_nb, high_nb
+
+
+def floor1_tables(xs, half: int) -> np.ndarray:
+    """Static int32 tables of one floor1 config at one blocksize:
+    xs[P] (config order) | low_nb[P] | high_nb[P] | order[P] (config index
+    of each x-sorted post) | xs_s[P] (sorted x) | base_p[half] (largest
+    sorted post with x <= bin)."""
+    xs_np = np.asarray(xs, dtype=np.int64)
+    low_nb, high_nb = _neighbours(xs_np)
     order = np.argsort(xs_np, kind="stable")
     xs_s = xs_np[order]
     base_p = np.searchsorted(xs_s, np.arange(half), side="right") - 1
     return np.concatenate([xs_np, low_nb, high_nb, order, xs_s, base_p]).astype(
         np.int32
     )
+
+
+def floor1_levels(xs) -> np.ndarray:
+    """Static int32 table of one floor1 config: the posts 2..P-1 grouped by
+    their depth in the unwrap's dependency graph, depth(0) = depth(1) = 0
+    and depth(i) = 1 + max(depth(low_nb[i]), depth(high_nb[i])). Layout:
+    D (the number of levels) | start[D+1] (start[L] is where level L+1
+    begins in the list, start[D] = P-2) | the posts, level by level, each
+    level in ascending order. Every post of a level reads only posts of
+    lower levels, so K2 unwraps a level's posts in parallel."""
+    xs_np = np.asarray(xs, dtype=np.int64)
+    P = len(xs_np)
+    low_nb, high_nb = _neighbours(xs_np)
+    depth = np.zeros(P, dtype=np.int64)
+    for i in range(2, P):
+        depth[i] = 1 + max(depth[low_nb[i]], depth[high_nb[i]])
+    D = int(depth.max()) if P > 2 else 0
+    posts = np.argsort(depth[2:], kind="stable") + 2
+    counts = np.bincount(depth[2:], minlength=D + 1)[1:]
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    return np.concatenate([[D], starts, posts]).astype(np.int32)
 
 
 def _split(tab: torch.Tensor, P: int):
@@ -71,7 +101,7 @@ def ys_ranks(ysmask: torch.Tensor, P2: int) -> torch.Tensor:
     """[G, B] packed zero bitmask of P2 values a row -> int64 [G]: each
     row's start rank in the compacted nonzero stream (exclusive prefix of
     per-row popcounts, row-major over the padded rows as the host compacts
-    them)."""
+    them). K2's rank kernel computes the same on the card."""
     shifts = torch.arange(8, device=ysmask.device, dtype=torch.int32)
     bits = (ysmask.to(torch.int32)[..., None] >> shifts) & 1
     counts = bits.reshape(ysmask.shape[0], -1)[:, :P2].sum(dim=1)
@@ -86,14 +116,14 @@ def rebuild_ys(ys01, ysmask, ysnz, P: int) -> torch.Tensor:
         return ys01
     G = ys01.shape[0]
     P2 = P - 2
+    mask = ysmask.reshape(G, -1)
     shifts = torch.arange(8, device=ys01.device, dtype=torch.int32)
-    bits = (ysmask.reshape(G, -1).to(torch.int32)[..., None] >> shifts) & 1
-    flat = bits.reshape(G, -1)[:, :P2].reshape(-1).to(torch.int64)
-    rank = torch.cumsum(flat, 0) - 1
+    bits = (mask.to(torch.int32)[..., None] >> shifts) & 1
+    bits = bits.reshape(G, -1)[:, :P2].to(torch.int64)
+    # a value's index: its row's start rank, then the set bits before it
+    rank = ys_ranks(mask, P2)[:, None] + torch.cumsum(bits, 1) - bits
     vals = ysnz.to(torch.int64)
-    tail = torch.where(
-        flat > 0, vals[rank.clamp(0, vals.shape[0] - 1)], 0
-    ).reshape(G, P2)
+    tail = torch.where(bits > 0, vals[rank.clamp(0, vals.shape[0] - 1)], 0)
     return torch.cat([ys01, tail], dim=1)
 
 
@@ -174,8 +204,12 @@ def floor1_curves_plain(posts, step2, used, tab: torch.Tensor, ab, P: int,
 
 
 def floor1_from_ys_plain(ys01, ysmask, ysnz, used, tab, ab, P: int,
-                         multiplier: int, half: int):
-    """Floor curves [G, half] float32 from the ys wire (plain twin of K2)."""
+                         multiplier: int, half: int, lev):
+    """Floor curves [G, half] float32 from the ys wire (plain twin of K2).
+    It unwraps in the reference's serial order; ``lev``, the order K2
+    takes, is not read (any order the dependencies allow gives the same
+    posts)."""
+    del lev
     ys = rebuild_ys(ys01, ysmask, ysnz, P)
     posts, step2 = floor1_unwrap_plain(ys, tab, P, multiplier)
     return floor1_curves_plain(posts, step2, used, tab, ab, P, multiplier,
@@ -211,8 +245,9 @@ def floor1_from_posts(posts, step2, used, tab, ab, P: int, multiplier: int,
     if posts.device.type == "cpu":
         return floor1_from_posts_plain(posts, step2, used, tab, ab, P,
                                        multiplier, half)
-    if not 2 <= P <= MAX_POSTS:
-        raise ValueError(f"floor1 with {P} posts (K2 holds 2..{MAX_POSTS})")
+    if not 2 <= P <= MAX_POSTS or half > MAX_HALF:
+        raise ValueError(f"floor1 with {P} posts over {half} bins (K2 holds "
+                         f"2..{MAX_POSTS} posts, {MAX_HALF} bins)")
     G = used.numel()
     posts = posts.reshape(G, P)
     step2 = step2.reshape(G, (P + 7) // 8)
@@ -234,37 +269,37 @@ def floor1_from_posts(posts, step2, used, tab, ab, P: int, multiplier: int,
 
 
 def floor1_from_ys(ys01, ysmask, ysnz, used, tab, ab, P: int,
-                   multiplier: int, half: int):
-    """``floor1_from_ys_plain`` for CPU tensors; kernel K2 for CUDA ones.
+                   multiplier: int, half: int, lev):
+    """``floor1_from_ys_plain`` for CPU tensors; kernel K2 for CUDA ones
+    (its C entry launches the rank kernel, then the main kernel; this
+    wrapper only allocates the output and the rank scratch).
 
     ys01 u8 [G, 2]; ysmask u8 [G, ceil((P-2)/8)] and ysnz u8 [cap] (None
     when P == 2); used u8 [G]; ``tab`` from floor1_tables; ``ab`` from
-    inverse_db_tables."""
+    inverse_db_tables; ``lev`` from floor1_levels."""
     if ys01.device.type == "cpu":
         return floor1_from_ys_plain(ys01, ysmask, ysnz, used, tab, ab, P,
-                                    multiplier, half)
-    if not 2 <= P <= MAX_POSTS:
-        raise ValueError(f"floor1 with {P} posts (K2 holds 2..{MAX_POSTS})")
+                                    multiplier, half, lev)
+    if not 2 <= P <= MAX_POSTS or half > MAX_HALF:
+        raise ValueError(f"floor1 with {P} posts over {half} bins (K2 holds "
+                         f"2..{MAX_POSTS} posts, {MAX_HALF} bins)")
     G = ys01.numel() // 2
-    ys01 = ys01.reshape(G, 2)
-    used = used.reshape(G)
-    if P > 2:
-        ysmask = ysmask.reshape(G, -1)
-        rank = ys_ranks(ysmask, P - 2)
-        cap = ysnz.numel()
-    else:
-        ysmask = ysnz = rank = ys01  # unread for P == 2
-        cap = 1
-    K.require_cuda(ys01, ysmask, ysnz, rank, used, tab, ab)
-    if tab.dtype != torch.int32 or ab.dtype != torch.float32:
+    cap = ysnz.numel() if P > 2 else 1
+    if P == 2:
+        ysmask = ysnz = ys01  # unread for P == 2
+    K.require_cuda(ys01, ysmask, ysnz, used, tab, lev, ab)
+    if (tab.dtype != torch.int32 or lev.dtype != torch.int32
+            or ab.dtype != torch.float32):
         raise TypeError("expected int32 tables and float32 A/B")
     out = torch.empty((G, half), dtype=torch.float32, device=ys01.device)
+    rank = torch.empty(G if P > 2 else 0, dtype=torch.int32,
+                       device=ys01.device)
     if G:
         K.launch(
             "floor1_synth",
             ys01.data_ptr(), ysmask.data_ptr(), ysnz.data_ptr(),
-            rank.data_ptr(), used.data_ptr(), tab.data_ptr(), ab.data_ptr(),
-            out.data_ptr(),
+            rank.data_ptr(), used.data_ptr(), tab.data_ptr(), lev.data_ptr(),
+            ab.data_ptr(), out.data_ptr(),
             G, P, half, multiplier, RANGES[multiplier - 1], cap,
         )
     return out
