@@ -14,14 +14,17 @@ nothing of the JAX package: the float64 anchor is the port's own
 3. each kernel against its plain PyTorch twin on the card, at the shapes
    of the first merged chunk of its path, with the bound of its work
    (bytes over 3.35 TB/s or operations over 67 TFLOP/s, counted from this
-   run's inputs). K1-K4 on the committed corpus's chunk
-   prepared as "f32"; K4's s16/s16p modes and K5 (select), K6 (header and
-   planes) and K7 (unary) in both rice modes on it prepared as "s16df";
-   K2's posts mode and K9 (value residues) on it prepared under the
-   fallback config (floor1_wire="posts", residue_transport="values");
-   K1 (format 0) and K8 (floor0) on the floor0 corpus's chunk. K1 runs
-   once a bucket, K2 as its rank kernel then its main kernel. All are
-   held with
+   run's inputs). K1-K3 on the committed corpus's chunk; K4 in its four
+   modes (f32, s16, s16p and dpack, the last with rice off and on) on that
+   chunk, on it prepared under the fallback config (floor1_wire="posts",
+   residue_transport="values") and on the floor0 corpus's chunk; on the
+   first and the last, the dpack select (K4's dpack mode) against
+   ``dpack_select_plain`` of the card's q, K6 (header and planes) and K7
+   (unary) in both rice modes, and the composed wire; K2's posts mode and
+   K9 (value residues) on the fallback chunk; K1 (format 0) and K8
+   (floor0) on the floor0 chunk. K1 runs once a bucket, K2 as its rank
+   kernel then its main kernel, K4 as its chain-state scan then its tiled
+   kernel. All are held with
    ``torch.equal`` (K8's twin takes K8's steps in K8's order, with the
    card's own cos/sqrt/exp; on a miss its max ulp distance and the share
    of values that differ are printed);
@@ -77,7 +80,7 @@ REPS = 20  # timed calls of each kernel's wrapper
 FALLBACK = {"floor1_wire": "posts", "residue_transport": "values"}
 KERNELS = {
     # name: (source, reference stage it replaces, run its launches are
-    # read from, launch-count key)
+    # read from, launch-count key[, phase-3 check if not that key])
     "residue_expand": ("vorbispizza_tpu_torch/csrc/residue_expand.cu",
                        "vorbispizza_tpu/ops/residue_sym.py:44", "s16",
                        "residue_expand"),
@@ -91,10 +94,11 @@ KERNELS = {
                         "couple_spectrum"),
     "ola_assemble": ("vorbispizza_tpu_torch/csrc/ola_assemble.cu",
                      "vorbispizza_tpu/ops/ola.py:220", "s16",
-                     "ola_assemble_s16"),
-    "dpack_select": ("vorbispizza_tpu_torch/csrc/dpack_select.cu",
+                     "ola_assemble_dpack"),
+    # the select runs inside K4's dpack mode
+    "dpack_select": ("vorbispizza_tpu_torch/csrc/ola_assemble.cu",
                      "vorbispizza_tpu/ops/pcm_pack.py:129", "s16",
-                     "dpack_select"),
+                     "ola_assemble_dpack", "dpack_select"),
     "dpack_pack": ("vorbispizza_tpu_torch/csrc/dpack_pack.cu",
                    "vorbispizza_tpu/ops/pcm_pack.py:321", "s16", "dpack_pack"),
     "dpack_unary": ("vorbispizza_tpu_torch/csrc/dpack_unary.cu",
@@ -107,22 +111,28 @@ KERNELS = {
                        "vorbispizza_tpu/models/pipeline.py:789",
                        "fallback_s16", "residue_gather"),
 }
-#: K4's output modes: (reference stage, run, launch-count key)
+#: K4's output modes: (mode, rice, reference stage, run, launch-count key)
 K4_MODES = {
-    "f32": ("vorbispizza_tpu/ops/ola.py:220", "f32", "ola_assemble"),
-    "s16": ("vorbispizza_tpu/models/pipeline.py:819", "s16",
+    "f32": ("f32", False, "vorbispizza_tpu/ops/ola.py:220", "f32",
+            "ola_assemble"),
+    "s16": ("s16", False, "vorbispizza_tpu/models/pipeline.py:819", "raw",
             "ola_assemble_s16"),
-    "s16p": ("vorbispizza_tpu/models/pipeline.py:878", "planes",
-             "ola_assemble_s16p"),
+    "s16p": ("s16p", False, "vorbispizza_tpu/models/pipeline.py:878",
+             "planes", "ola_assemble_s16p"),
+    "dpack": ("dpack", False, "vorbispizza_tpu/ops/pcm_pack.py:129", "s16",
+              "ola_assemble_dpack"),
+    "dpack_rice": ("dpack", True, "vorbispizza_tpu/ops/pcm_pack.py:129",
+                   "rice", "ola_assemble_dpack"),
 }
-_S16_PATH = ("couple_spectrum", "ola_assemble_s16", "dpack_select",
-             "dpack_pack")
+#: the chunks K4's modes are held and timed on (phase-3 name suffix)
+K4_CHUNKS = {"corpus32": "", "fallback": "_fallback", "floor0": "_floor0"}
+_S16_PATH = ("couple_spectrum", "ola_assemble_dpack", "dpack_pack")
 #: launch counts each run must show (the kernels on its path)
 RUN_KERNELS = {
     "f32": ("residue_expand", "floor1_synth", "couple_spectrum",
             "ola_assemble"),
     "s16": ("residue_expand", "floor1_synth") + _S16_PATH,
-    "rice": ("ola_assemble_s16", "dpack_select", "dpack_pack", "dpack_unary"),
+    "rice": ("ola_assemble_dpack", "dpack_pack", "dpack_unary"),
     "raw": ("ola_assemble_s16",),
     "planes": ("ola_assemble_s16p",),
     "fallback_f32": ("residue_gather", "floor1_posts", "couple_spectrum",
@@ -234,7 +244,8 @@ def _profile_run(run_fn, top: int = 10, tries: int = 3) -> dict:
             with record_function(tag):
                 chunks = run_fn().stats["chunks"]
         evs = prof.events()
-        k4 = sum(1 for e in evs if _is_device(e) and "ola_assemble" in e.name)
+        k4 = sum(1 for e in evs
+                 if _is_device(e) and "ola_assemble_kernel" in e.name)
         if k4 >= chunks:
             break
         print(f"  profiled run {attempt}: the trace holds {k4} of {chunks} "
@@ -375,36 +386,14 @@ def _numel(outs) -> int:
     return sum(o.numel() for o in outs)
 
 
-def _first_chunk(corpus, output="f32"):
-    """The first merged chunk decode_corpus forms from ``corpus`` under the
-    current config, prepared for ``output``."""
-    from vorbispizza_tpu_torch.config import VorbisConfig
-    from vorbispizza_tpu_torch.models.corpus import (
-        _front_end,
-        _synthesizer_for,
-        merge_streams,
-    )
-
-    fronts, cost = [], 0
-    for data in corpus:
-        fronts.append(_front_end(data))
-        cost += sum(b.batch_cost for b in fronts[-1][3])
-        if cost >= VorbisConfig.default.corpus_batch_bytes:
-            break
-    synth = _synthesizer_for(fronts[0][0], fronts[0][1])
-    for f in fronts:
-        synth.add_setup(f[0])
-    plan, buckets, _ = merge_streams([f[2:4] for f in fronts])
-    sig, host, total = synth.prepare_host(plan, buckets, output)
-    return synth, sig, host, len(fronts)
-
-
 def _chunk(corpus, dev, output="f32", **settings):
     """(synth, sig, device buffers, buckets) of the first chunk."""
     import torch
 
+    from vorbispizza_tpu_torch.testing.chunks import first_chunk
+
     with configured(**settings):
-        synth, sig, host, n_streams = _first_chunk(corpus, output)
+        synth, sig, host, n_streams = first_chunk(corpus, output)
     bufs = [torch.from_numpy(a).to(dev) for a in host]
     bks = synth.buckets(sig, bufs)
     print(f"  first chunk ({output}{', ' + str(settings) if settings else ''}"
@@ -415,8 +404,8 @@ def _chunk(corpus, dev, output="f32", **settings):
 
 
 def check_kernels(corpus, dev):
-    """Phase 3: K1-K4 at the first chunk's shapes."""
-    from vorbispizza_tpu_torch.ops import coupling, floor, ola
+    """Phase 3: K1-K4 and the dpack kernels at the first chunk's shapes."""
+    from vorbispizza_tpu_torch.ops import coupling, floor
 
     synth, sig, bufs, bks = _chunk(corpus, dev)
     flo_calls = [a for bk in bks for _, w, a in synth.floor_calls(bk)]
@@ -441,16 +430,12 @@ def check_kernels(corpus, dev):
     )
     spectra = [(bk, coupling.couple_spectrum(r, f, s)) for bk, r, f, s in stage]
     out["dct_iv"] = _dct_row(synth, spectra)
-    ola_bks = [synth.ola_bucket(bk, synth.dct(bk, sp)) for bk, sp in spectra]
-    evs = bufs[4:9]
-    out["ola_assemble"] = _compare(
-        "ola_assemble",
-        lambda: [ola.ola_assemble(ola_bks, evs, sig[3])],
-        lambda: [ola.ola_assemble_plain(ola_bks, evs, sig[3])],
-        inputs=[t for b in ola_bks for t in b] + list(evs),
-        ops=lambda o: 3 * _numel(o),
-    )
-    out.update(check_s16_kernels(corpus, dev))
+    obks = [synth.ola_bucket(bk, synth.dct(bk, sp)) for bk, sp in spectra]
+    evs, L, C = bufs[4:9], sig[3], synth.channels
+    out.update(_check_k4(obks, evs, L, C, K4_CHUNKS["corpus32"]))
+    print(f"  dpack wire: C {C}, L {L}, NBt {C * -(-L // 128)}", flush=True)
+    for rice in (False, True):
+        out.update(_check_dpack(obks, evs, L, rice, dev))
     return out
 
 
@@ -498,60 +483,70 @@ def _dct_row(synth, spectra):
     return res
 
 
-def check_s16_kernels(corpus, dev):
-    """Phase 3, s16: K4's s16/s16p modes and K5-K7 on the first chunk
-    prepared as "s16df" (full-capacity dpack wire)."""
-    from vorbispizza_tpu_torch.ops import coupling, ola
-    from vorbispizza_tpu_torch.ops import pcm_pack as pp
+def _ola_operands(synth, bks):
+    """K4's bucket operands of a chunk, made by the kernels before it."""
+    from vorbispizza_tpu_torch.ops import coupling
 
-    synth, sig, bufs, bks = _chunk(corpus, dev, "s16df")
-    obks = []
-    for bk in bks:
-        spectra = coupling.couple_spectrum(synth.residues(bk), synth.floors(bk),
-                                           bk["tables"]["steps"])
-        obks.append(synth.ola_bucket(bk, synth.dct(bk, spectra)))
-    evs, L, C = bufs[4:9], sig[3], synth.channels
+    return [synth.ola_bucket(bk, synth.dct(bk, coupling.couple_spectrum(
+        synth.residues(bk), synth.floors(bk), bk["tables"]["steps"])))
+        for bk in bks]
+
+
+def _outs(x) -> list:
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def _check_k4(obks, evs, L, C, suffix):
+    """K4's modes (K4_MODES: the dpack mode with rice off and on) on one
+    chunk's operands against their twins. The dpack mode's work: the s16
+    mode's, plus 32 operations a sample for the select."""
+    from vorbispizza_tpu_torch.ops import ola
+
     ola_in = [t for b in obks for t in b] + list(evs)
     out = {}
-    for mode in ("s16", "s16p"):
-        out["ola_assemble_" + mode] = _compare(
-            "ola_assemble_" + mode,
-            lambda m=mode: [ola.ola_assemble(obks, evs, L, m)],
-            lambda m=mode: [ola.ola_assemble_plain(obks, evs, L, m)],
-            inputs=ola_in, ops=lambda o: 4 * C * L, kernel="ola_assemble",
+    for key, (mode, rice, *_) in K4_MODES.items():
+        name = f"ola_assemble_{key}{suffix}"
+        ops = {"f32": 3, "s16": 4, "s16p": 4, "dpack": 36}[mode] * C * L
+        out[name] = _compare(
+            name,
+            lambda m=mode, r=rice: _outs(ola.ola_assemble(obks, evs, L, m,
+                                                          rice=r)),
+            lambda m=mode, r=rice: _outs(ola.ola_assemble_plain(obks, evs, L,
+                                                                m, r)),
+            inputs=ola_in, ops=lambda o, n=ops: n, kernel="ola_assemble",
         )
-    q = ola.ola_assemble(obks, evs, L, "s16")
-    print(f"  dpack wire: C {C}, L {L}, NBt {pp.wire_rows(L, C)}", flush=True)
-    for rice in (False, True):
-        out.update(_check_dpack(q, rice, dev))
     return out
 
 
-def _check_dpack(q, rice, dev):
-    """K5, K6 and (rice) K7 on the card's q, then the composed wrapper
-    against the composed twin, below nbytes (full-capacity wire). A
-    function of its own per rice mode, so the kept closures bind this
-    mode's buffers."""
+def _check_dpack(obks, evs, L, rice, dev, suffix=""):
+    """The select (K4's dpack mode, into a wire's widx table) against
+    ``dpack_select_plain`` of the card's q, K6 and (rice) K7 on the card's
+    q and select, then ``dpack_wire`` on them against the composed twin,
+    below nbytes (full-capacity wire). A function of its own per rice mode,
+    so the kept closures bind this mode's buffers."""
     import torch
 
+    from vorbispizza_tpu_torch.ops import ola
     from vorbispizza_tpu_torch.ops import pcm_pack as pp
 
-    C, L = q.shape
+    C = obks[0][0].shape[1]
     nbt = pp.wire_rows(L, C)
     hdr = pp.wire_header_bytes(C)
     cap, ucap, urow = pp.wire_caps(nbt, True)
     tag, key = (" (rice)", "_rice") if rice else (" (width-only)", "")
-    wire = torch.empty(pp.wire_bytes(C, nbt, cap, ucap, rice),
-                       dtype=torch.uint8, device=dev)
-    wview = wire[hdr : hdr + nbt]
+    tag, key = tag + suffix, key + suffix
+    wire, wview = pp.wire_buffer(C, L, cap, ucap, rice, dev)
+    q, wbyte, ubits = ola.ola_assemble(obks, evs, L, "dpack", rice=rice,
+                                       wbyte=wview)
     out = {}
     out["dpack_select" + key] = _compare(
         "dpack_select" + tag,
-        lambda: list(pp.dpack_select(q, rice, out=wview)),
-        lambda: list(pp.dpack_select_plain(q, rice)),
-        inputs=[q], ops=lambda _: 32 * q.numel(), kernel="dpack_select",
+        lambda: list(ola.ola_assemble(obks, evs, L, "dpack", rice=rice,
+                                      wbyte=wview)),
+        lambda: [q, *pp.dpack_select_plain(q, rice)],
+        inputs=[t for b in obks for t in b] + list(evs),
+        ops=lambda _: 36 * q.numel(), kernel="ola_assemble",
     )
-    wbyte, ubits = pp.dpack_select(q, rice, out=wview)
     scan = pp.dpack_scan(wbyte, ubits, urow, rice)
     nb_plane = 16 * int(scan["gcum"][-1])
     n_k6 = hdr + nbt + min(nb_plane, 16 * cap)
@@ -565,7 +560,7 @@ def _check_dpack(q, rice, dev):
     )
     if rice:
         ub = min(4 * int(scan["ucum"][-1]), 4 * ucap)
-        out["dpack_unary"] = _compare(
+        out["dpack_unary" + suffix] = _compare(
             "dpack_unary" + tag,
             lambda: pp.dpack_unary(q, wire, scan, cap, ucap, urow),
             lambda: pp.dpack_unary_plain(q, wbyte, ucap, urow),
@@ -574,7 +569,8 @@ def _check_dpack(q, rice, dev):
             view_k=lambda _: [wire[n_k6 : n_k6 + ub]],
             view_p=lambda u: [u[:ub]],
         )
-    wk = pp.dpack_wire(q, cap, ucap, urow, rice)
+    wk = pp.dpack_wire(q, cap, ucap, urow, rice, select=(wbyte, ubits),
+                       wire=wire)
     wp = pp.dpack_wire_plain(q, cap, ucap, urow, rice)
     nb = int(wk[:4].cpu().numpy().view("<i4")[0])
     if not torch.equal(wk[: hdr + nbt + nb], wp[: hdr + nbt + nb]):
@@ -586,8 +582,8 @@ def _check_dpack(q, rice, dev):
 
 
 def check_fallback_kernels(corpus, dev):
-    """Phase 3, fallback wires: K2's posts mode and K9 on the first chunk
-    prepared under the fallback config."""
+    """Phase 3, fallback wires: K2's posts mode, K9 and K4 on the first
+    chunk prepared under the fallback config."""
     import torch
 
     from vorbispizza_tpu_torch.ops import floor
@@ -620,6 +616,8 @@ def check_fallback_kernels(corpus, dev):
         library_fn=lambda: [torch.index_select(a[0], 0, i)
                             for a, i in zip(vals, idx)],
     )
+    out.update(_check_k4(_ola_operands(synth, bks), bufs[4:9], sig[3],
+                         synth.channels, K4_CHUNKS["fallback"]))
     return out
 
 
@@ -643,7 +641,8 @@ def _floor0_check(got, want):
 
 
 def check_floor0_kernel(corpus, dev):
-    """Phase 3, floor0: K8 on the floor0 corpus's first chunk."""
+    """Phase 3, floor0: K1, K8, K4 and the dpack kernels on the floor0
+    corpus's first chunk."""
     from vorbispizza_tpu_torch.ops import floor
 
     synth, sig, bufs, bks = _chunk(corpus, dev)
@@ -651,9 +650,9 @@ def check_floor0_kernel(corpus, dev):
              if w == "floor0"]
     if not calls:
         raise AssertionError("the floor0 chunk has no floor0 group")
-    return {"residue_expand_f0": _check_k1("residue_expand (floor0 chunk, "
-                                          "format 0)", synth, bks),
-            "floor0_synth": _compare(
+    out = {"residue_expand_f0": _check_k1("residue_expand (floor0 chunk, "
+                                         "format 0)", synth, bks),
+           "floor0_synth": _compare(
         "floor0_synth",
         lambda: [floor.floor0_curves(*a) for a in calls],
         lambda: [floor.floor0_curves_plain(*a) for a in calls],
@@ -662,6 +661,12 @@ def check_floor0_kernel(corpus, dev):
                           for a in calls),
         check=_floor0_check,
     )}
+    obks = _ola_operands(synth, bks)
+    suffix = K4_CHUNKS["floor0"]
+    out.update(_check_k4(obks, bufs[4:9], sig[3], synth.channels, suffix))
+    for rice in (False, True):
+        out.update(_check_dpack(obks, bufs[4:9], sig[3], rice, dev, suffix))
+    return out
 
 
 def _quantize(pcm, np):
@@ -901,18 +906,23 @@ def main() -> int:
             "library_ms")
 
     def entry(name):
-        src, ref, run_name, key = KERNELS[name]
+        src, ref, run_name, key, *check = KERNELS[name]
         e = {"name": name, "route": "cuda", "source": src, "replaces": ref,
              "run": run_name, "launches": runs[run_name][key],
              "launches_per_run": {r: c[key] for r, c in runs.items()
                                   if c[key]},
-             **{k: checks[key][k] for k in keys}}
+             **{k: checks[(check or [key])[0]][k] for k in keys}}
         if name == "ola_assemble":
             e["modes"] = {
                 mode: {"replaces": mref, "run": mrun,
                        "launches": runs[mrun][mkey],
-                       **{k: checks[mkey][k] for k in keys}}
-                for mode, (mref, mrun, mkey) in K4_MODES.items()
+                       "launches_per_run": {r: c[mkey] for r, c in runs.items()
+                                            if c[mkey]},
+                       **{k: checks[f"ola_assemble_{mode}"][k] for k in keys},
+                       **{chunk: {k: checks[f"ola_assemble_{mode}{sfx}"][k]
+                                  for k in keys}
+                          for chunk, sfx in K4_CHUNKS.items() if sfx}}
+                for mode, (_, _, mref, mrun, mkey) in K4_MODES.items()
             }
         return e
 

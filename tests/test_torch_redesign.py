@@ -27,31 +27,13 @@ from hypothesis import strategies as st
 
 from vorbispizza_tpu.ops.floor import floor1_unwrap
 from vorbispizza_tpu.ops.residue_sym import expand_submap as jax_expand_submap
-from vorbispizza_tpu_torch.config import VorbisConfig
-from vorbispizza_tpu_torch.models import corpus as torch_corpus
 from vorbispizza_tpu_torch.ops import floor, residue_sym
+from vorbispizza_tpu_torch.testing.chunks import first_chunk
 from vorbispizza_tpu_torch.testing.corpus32 import load_corpus
 from vorbispizza_tpu_torch.testing.streams import make_streams
 
 #: rows a tile of K2's rank kernel (csrc/floor1_synth.cu VP_RANK_THREADS)
 RANK_TILE = 1024
-
-
-def first_chunk(srcs):
-    """(synth, sig, CPU tensors of the nine host arrays) of the first
-    merged chunk decode_corpus forms from ``srcs`` (as f32)."""
-    fronts, cost = [], 0
-    for data in srcs:
-        fronts.append(torch_corpus._front_end(data))
-        cost += sum(b.batch_cost for b in fronts[-1][3])
-        if cost >= VorbisConfig.default.corpus_batch_bytes:
-            break
-    synth = torch_corpus._synthesizer_for(fronts[0][0], fronts[0][1])
-    for f in fronts:
-        synth.add_setup(f[0])
-    plan, buckets, _ = torch_corpus.merge_streams([f[2:4] for f in fronts])
-    sig, host, _ = synth.prepare_host(plan, buckets, "f32")
-    return synth, sig, [torch.from_numpy(a) for a in host]
 
 
 _CHUNKS = {}
@@ -60,7 +42,8 @@ _CHUNKS = {}
 def chunk(group):
     if group not in _CHUNKS:
         srcs = load_corpus() if group == "corpus32" else make_streams(group)
-        _CHUNKS[group] = first_chunk(srcs)
+        synth, sig, host, _ = first_chunk(srcs)
+        _CHUNKS[group] = (synth, sig, [torch.from_numpy(a) for a in host])
     return _CHUNKS[group]
 
 

@@ -1,6 +1,6 @@
-// Shared pieces of the dpack s16 wire kernels K5-K7 (dpack_select.cu,
-// dpack_pack.cu, dpack_unary.cu): the width table and the per-sample
-// candidate zigzag, rebuilt from q.
+// Shared pieces of the dpack s16 wire kernels: K4's dpack mode (the
+// select, ola_assemble.cu), K6 and K7 (dpack_pack.cu, dpack_unary.cu): the
+// width table and the per-sample candidate zigzag, rebuilt from q.
 //
 // q is int16 [C, L] (already in the s16 range). A block row r covers
 // channel c = r / NB, samples 128*(r % NB) ... +127; samples past L are

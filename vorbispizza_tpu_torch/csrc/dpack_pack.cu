@@ -7,11 +7,11 @@
 // words, and a row take per 16-byte group compacts the chosen ones.
 //
 // Here one 128-thread block per block row: thread s rebuilds the winner's
-// zigzag of sample s from q and the widx|flags byte (K5's choice), keeps
-// its low w bits and ORs them into shared-memory words at bit s*w (a value
-// straddles at most two words). The block's 4w words then go out at byte
+// zigzag of sample s from q and the widx|flags byte (the select's choice,
+// made by K4's dpack mode), keeps its low w bits and ORs them into
+// shared-memory words at bit s*w (a value straddles at most two words). The block's 4w words then go out at byte
 // 16*goff of the payload, where goff is the exclusive scan of groups (16
-// bytes, = w per block) that torch computes between K5 and K6; groups at
+// bytes, = w per block) that torch computes between K4 and K6; groups at
 // or past cap_groups are dropped (nbytes still reports the true size, as
 // the reference's compact does). Block row 0 also writes the header:
 // [i32 nbytes][u32 16*cap_groups][u32 ch_ubit[C]], with nbytes = plane +

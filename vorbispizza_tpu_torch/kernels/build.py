@@ -50,15 +50,15 @@ SIGNATURES = {
     "vp_floor0_synth": [P] * 6 + [I] * 3 + [D] * 2 + [P],
     "vp_residue_gather": [P] * 3 + [I] * 4 + [P],
     "vp_couple_spectrum": [P] * 4 + [I] * 4 + [P],
-    "vp_ola_assemble": [P] * 7 + [I] * 6 + [P],
-    "vp_dpack_select": [P] * 4 + [I] * 4 + [P],
+    "vp_ola_assemble": [P] * 11 + [I] * 7 + [P],
     "vp_dpack_pack": [P] * 6 + [I] * 6 + [P],
     "vp_dpack_unary": [P] * 5 + [I] * 7 + [P],
 }
 
 #: launches per kernel since the last reset (chip_smoke reads these to
 #: show the main path went through every kernel); K2's posts mode and
-#: K4's output modes count under their own names
+#: K4's output modes (the dpack mode holds the dpack wire's select) count
+#: under their own names
 COUNTS = {
     "residue_expand": 0,
     "residue_gather": 0,
@@ -69,7 +69,7 @@ COUNTS = {
     "ola_assemble": 0,
     "ola_assemble_s16": 0,
     "ola_assemble_s16p": 0,
-    "dpack_select": 0,
+    "ola_assemble_dpack": 0,
     "dpack_pack": 0,
     "dpack_unary": 0,
 }

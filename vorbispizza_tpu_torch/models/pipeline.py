@@ -20,9 +20,10 @@ and every output of the reference:
               floor.floor0_curves (K8, floor0)
     -> coupling.couple_spectrum (K3) -> imdct.dct_iv (torch.matmul)
     -> ola.ola_assemble (K4, with the IMDCT epilogue folded in; "f32"
-       PCM, or the s16 quantize in registers for "s16"/"s16p"/dpack)
-    -> for "s16d"/"s16df": pcm_pack.dpack_wire (K5 select, K6 header and
-       planes, K7 unary on a rice wire), one u8 wire buffer
+       PCM, or the s16 quantize in registers for "s16"/"s16p"; for the
+       dpack wires its dpack mode: q and the wire's per-block select)
+    -> for "s16d"/"s16df": pcm_pack.dpack_wire (K6 header and planes, K7
+       unary on a rice wire), into the one u8 wire buffer K4 began
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ from ..ops.floor import (
 )
 from ..ops.imdct import dct_iv, dct_iv_basis
 from ..ops.ola import ola_assemble
-from ..ops.pcm_pack import dpack_wire, wire_caps, wire_rows
+from ..ops.pcm_pack import dpack_wire, wire_buffer, wire_caps, wire_rows
 from ..ops.residue_sym import bucket_table, expand_bucket, pack_bits
 from ..ops.residue_values import residue_gather
 from ..setup.mode import window_geometry
@@ -947,13 +948,16 @@ class BatchSynthesizer(nn.Module):
             spectra = couple_spectrum(self.residues(bk), self.floors(bk),
                                       bk["tables"]["steps"])
             ola_buckets.append(self.ola_bucket(bk, self.dct(bk, spectra)))
-        output = sig[5]
-        mode = "s16" if output in DPACK else output
-        out = ola_assemble(ola_buckets, bufs[4:9], sig[3], mode)
+        output, L, C, rice = sig[5], sig[3], self.channels, sig[6]
         if output not in DPACK:
-            return out
-        caps = wire_caps(wire_rows(sig[3], self.channels), output == "s16df")
-        return dpack_wire(out, *caps, rice=sig[6])
+            return ola_assemble(ola_buckets, bufs[4:9], L, output)
+        caps = wire_caps(wire_rows(L, C), output == "s16df")
+        # K4 writes the select straight into the wire's widx table
+        wire, widx = wire_buffer(C, L, *caps[:2], rice, bufs[0].device)
+        q, wbyte, ubits = ola_assemble(ola_buckets, bufs[4:9], L, "dpack",
+                                       rice=rice, wbyte=widx)
+        return dpack_wire(q, *caps, rice=rice, select=(wbyte, ubits),
+                          wire=wire)
 
 
 def device_tables(synth: BatchSynthesizer, key, device) -> dict:

@@ -1,4 +1,5 @@
-"""Delta block-pack (dpack) s16 wire: kernels K5-K7, their twins, the host half.
+"""Delta block-pack (dpack) s16 wire: the select, kernels K6-K7, their twins,
+the host half.
 
 Port of vorbispizza_tpu/ops/pcm_pack.py (which imports jax, so its
 constants and host helpers are carried over here). The wire is ONE device
@@ -11,18 +12,20 @@ Per 128-sample block the packer picks one of four candidates (second or
 third difference, own or minus the pair partner's), zigzags it and codes
 it either at the narrowest ``WIDTHS`` rung holding the block max (width
 mode) or as a k-bit low plane plus unary high parts (rice mode, bit 7),
-by exact bit cost. Three stages, each a hand-written kernel with a plain
-PyTorch twin:
+by exact bit cost. Three stages, each in a hand-written kernel with a
+plain PyTorch twin:
 
-    K5 dpack_select (csrc/dpack_select.cu)  q -> widx|flags byte + unary bits
+    select   (K4's dpack mode, csrc/ola_assemble.cu)  widx|flags byte +
+             unary bits per block, from the q K4 has just made
     K6 dpack_pack   (csrc/dpack_pack.cu)    header + plane section
     K7 dpack_unary  (csrc/dpack_unary.cu)   unary section (rice wires only)
 
-K5 emits only the CHOICE per block; K6 and K7 rebuild the winner's zigzag
-from q (four int16 reads per sample) instead of reading a [NBt, 128] u32
-plane and a [NBt, 128] i32 unary-length tensor that K5 would have to
-write: 1 KiB a block of device traffic saved twice. The exclusive scans
-between stages are torch ``cumsum`` glue (``dpack_scan``).
+The select (``dpack_select_plain`` is its twin) emits only the CHOICE per
+block; K6 and K7 rebuild the winner's zigzag from q (four int16 reads per
+sample) instead of reading a [NBt, 128] u32 plane and a [NBt, 128] i32
+unary-length tensor that the select would have to write: 1 KiB a block of
+device traffic saved twice. The exclusive scans between stages are torch
+``cumsum`` glue (``dpack_scan``).
 
 ``select_candidate_plain`` is the reference's ``select_candidate``;
 ``dpack_wire_plain`` its ``pack_pcm`` plus the header, byte-identical to
@@ -145,7 +148,7 @@ def planes_plain(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([u & 0xFF, u >> 8]).to(torch.uint8)
 
 
-# -- plain twins of K5-K7 -------------------------------------------------------
+# -- plain twins of the select, K6 and K7 ---------------------------------------
 
 
 def _table(values, device) -> torch.Tensor:
@@ -231,8 +234,8 @@ def select_candidate_plain(q: torch.Tensor, rice: bool):
 
 
 def dpack_select_plain(q: torch.Tensor, rice: bool):
-    """Twin of K5: (widx|flags u8 [NBt], unary bits int32 [NBt] = sum of
-    ulen, 0 on width blocks)."""
+    """Twin of the select in K4's dpack mode: (widx|flags u8 [NBt], unary
+    bits int32 [NBt] = sum of ulen, 0 on width blocks)."""
     _, widx, flags, ulen = select_candidate_plain(q, rice)
     return (widx | flags).to(torch.uint8), ulen.sum(dim=1, dtype=torch.int32)
 
@@ -354,11 +357,13 @@ def dpack_unary_plain(q, wbyte, cap_uwords: int, cap_urow: int):
 
 
 def dpack_wire_plain(q: torch.Tensor, cap_groups: int, cap_uwords: int,
-                     cap_urow: int, rice: bool) -> torch.Tensor:
+                     cap_urow: int, rice: bool, select=None) -> torch.Tensor:
     """The whole wire of q [C, L] (the reference's pack_pcm + header):
-    u8 [wire_bytes(...)]."""
+    u8 [wire_bytes(...)]. ``select``: q's (widx|flags, unary bits), made
+    here when not given."""
     C = q.shape[0]
-    wbyte, ubits = dpack_select_plain(q, rice)
+    wbyte, ubits = select if select is not None else dpack_select_plain(
+        q, rice)
     scan = dpack_scan(wbyte, ubits, cap_urow, rice)
     wire = dpack_pack_plain(q, wbyte, scan, cap_groups, rice)
     if not rice:
@@ -371,12 +376,13 @@ def dpack_wire_plain(q: torch.Tensor, cap_groups: int, cap_uwords: int,
     return torch.cat([wire[: wire_header_bytes(C) + wbyte.shape[0]], pay])
 
 
-# -- kernel wrappers: twin for CPU tensors, K5-K7 for CUDA ones -----------------
+# -- kernel wrappers: twin for CPU tensors, the kernels for CUDA ones -----------
 
 _partners: dict = {}
 
 
-def _partner_table(C: int, device) -> torch.Tensor:
+def partner_table(C: int, device) -> torch.Tensor:
+    """``pair_partner(C)`` as int32 on ``device`` (cached)."""
     key = (C, str(device))
     t = _partners.get(key)
     if t is None:
@@ -391,29 +397,32 @@ def _check_q(q: torch.Tensor) -> None:
         raise TypeError("the dpack kernels take q as int16 [C, L]")
 
 
-def dpack_select(q: torch.Tensor, rice: bool, out: torch.Tensor | None = None):
-    """``dpack_select_plain`` for CPU tensors; K5 for CUDA ones. ``out``:
-    a u8 [NBt] view (the wire's widx table) the kernel writes into."""
+def dpack_select(q: torch.Tensor, rice: bool):
+    """``dpack_select_plain`` for CPU tensors. On the card the select runs
+    inside K4's dpack mode, on the q it makes, so a CUDA q raises."""
     if q.device.type == "cpu":
         return dpack_select_plain(q, rice)
-    _check_q(q)
-    C, L = q.shape
-    NB = -(-L // BLOCK)
-    if out is None:
-        out = torch.empty(C * NB, dtype=torch.uint8, device=q.device)
-    K.require_cuda(out)
-    ubits = torch.empty(C * NB, dtype=torch.int32, device=q.device)
-    if C * NB:
-        K.launch("dpack_select", q.data_ptr(),
-                 _partner_table(C, q.device).data_ptr(), out.data_ptr(),
-                 ubits.data_ptr(), C, L, NB, int(rice))
-    return out, ubits
+    raise ValueError("the dpack select runs inside K4's dpack mode on the "
+                     "card: ops.ola.ola_assemble(buckets, evs, L, 'dpack', "
+                     "rice=rice) returns (q, widx|flags, unary bits)")
+
+
+def wire_buffer(C: int, L: int, cap_groups: int, cap_uwords: int, rice: bool,
+                device) -> tuple[torch.Tensor, torch.Tensor]:
+    """An unfilled wire and the view of its widx table (u8 [NBt]), which
+    K4's dpack mode writes."""
+    NBt = wire_rows(L, C)
+    HDR = wire_header_bytes(C)
+    wire = torch.empty(wire_bytes(C, NBt, cap_groups, cap_uwords, rice),
+                       dtype=torch.uint8, device=device)
+    return wire, wire[HDR : HDR + NBt]
 
 
 def dpack_pack(q: torch.Tensor, wire: torch.Tensor, scan: dict,
                cap_groups: int, rice: bool) -> None:
     """K6 into ``wire`` (CUDA only): the header and the plane section. The
-    widx table must already be in the wire (K5 writes it there)."""
+    widx table must already be in the wire (K4's dpack mode writes it
+    there)."""
     _check_q(q)
     K.require_cuda(wire, scan["gcum"])
     C, L = q.shape
@@ -421,7 +430,7 @@ def dpack_pack(q: torch.Tensor, wire: torch.Tensor, scan: dict,
     ucum, over = (scan["ucum"], scan["over"]) if rice else (None, None)
     if rice:
         K.require_cuda(ucum, over)
-    K.launch("dpack_pack", q.data_ptr(), _partner_table(C, q.device).data_ptr(),
+    K.launch("dpack_pack", q.data_ptr(), partner_table(C, q.device).data_ptr(),
              wire.data_ptr(), scan["gcum"].data_ptr(),
              ucum.data_ptr() if rice else 0, over.data_ptr() if rice else 0,
              C, L, NB, wire_header_bytes(C), cap_groups, int(rice))
@@ -439,24 +448,39 @@ def dpack_unary(q: torch.Tensor, wire: torch.Tensor, scan: dict,
     NB = -(-L // BLOCK)
     if C * NB:
         K.launch("dpack_unary", q.data_ptr(),
-                 _partner_table(C, q.device).data_ptr(), wire.data_ptr(),
+                 partner_table(C, q.device).data_ptr(), wire.data_ptr(),
                  scan["gcum"].data_ptr(), scan["ucum"].data_ptr(), C, L, NB,
                  wire_header_bytes(C), cap_groups, cap_uwords, cap_urow)
 
 
 def dpack_wire(q: torch.Tensor, cap_groups: int, cap_uwords: int,
-               cap_urow: int, rice: bool) -> torch.Tensor:
-    """``dpack_wire_plain`` for CPU tensors; K5 -> scans -> K6 (-> K7 on a
-    rice wire) for CUDA ones. Bytes past nbytes are unspecified."""
+               cap_urow: int, rice: bool, select=None,
+               wire: torch.Tensor | None = None) -> torch.Tensor:
+    """The dpack wire of q. ``select``: (widx|flags, unary bits) of q, as
+    K4's dpack mode made them; ``wire``: the buffer (``wire_buffer``) whose
+    widx table is ``select``'s first tensor.
+
+    CPU tensors: ``dpack_wire_plain`` (copied into ``wire`` when given).
+    CUDA ones: scans -> K6 (-> K7 on a rice wire) into ``wire``; both
+    arguments are required. Bytes past nbytes are unspecified."""
     if q.device.type == "cpu":
-        return dpack_wire_plain(q, cap_groups, cap_uwords, cap_urow, rice)
+        out = dpack_wire_plain(q, cap_groups, cap_uwords, cap_urow, rice,
+                               select)
+        return out if wire is None else wire.copy_(out)
     _check_q(q)
     C, L = q.shape
     NBt = wire_rows(L, C)
     HDR = wire_header_bytes(C)
-    wire = torch.empty(wire_bytes(C, NBt, cap_groups, cap_uwords, rice),
-                       dtype=torch.uint8, device=q.device)
-    wbyte, ubits = dpack_select(q, rice, out=wire[HDR : HDR + NBt])
+    if select is None or wire is None:
+        raise ValueError("dpack_wire on the card takes the select and the "
+                         "wire of K4's dpack mode (ops.ola.ola_assemble(..., "
+                         "'dpack', wbyte=wire_buffer(...)[1]))")
+    wbyte, ubits = select
+    K.require_cuda(wire, wbyte, ubits)
+    if (wire.shape[0] != wire_bytes(C, NBt, cap_groups, cap_uwords, rice)
+            or wbyte.data_ptr() != wire.data_ptr() + HDR
+            or wbyte.shape != (NBt,)):
+        raise ValueError("the select's widx table is not this wire's")
     scan = dpack_scan(wbyte, ubits, cap_urow, rice)
     dpack_pack(q, wire, scan, cap_groups, rice)
     if rice:
