@@ -14,17 +14,22 @@ nothing of the JAX package: the float64 anchor is the port's own
 3. each kernel against its plain PyTorch twin on the card, at the shapes
    of the first merged chunk of its path, with the bound of its work
    (bytes over 3.35 TB/s or operations over 67 TFLOP/s, counted from this
-   run's inputs). K1-K3 on the committed corpus's chunk; K4 in its four
-   modes (f32, s16, s16p and dpack, the last with rice off and on) on that
-   chunk, on it prepared under the fallback config (floor1_wire="posts",
-   residue_transport="values") and on the floor0 corpus's chunk; on the
-   first and the last, the dpack select (K4's dpack mode) against
-   ``dpack_select_plain`` of the card's q, K6 (header and planes) and K7
-   (unary) in both rice modes, and the composed wire; K2's posts mode and
-   K9 (value residues) on the fallback chunk; K1 (format 0) and K8
-   (floor0) on the floor0 chunk. K1 runs once a bucket, K2 as its rank
-   kernel then its main kernel, K4 as its chain-state scan then its tiled
-   kernel. All are held with
+   run's inputs). K1 and K2 on the committed corpus's chunk; K3 (one
+   launch over every bucket of a chunk) and K4 in its four modes (f32,
+   s16, s16p and dpack, the last with rice off and on) on that chunk, on it
+   prepared under the fallback config (floor1_wire="posts",
+   residue_transport="values") and on the floor0 corpus's chunk; on all
+   three, the dpack select (K4's dpack mode) against ``dpack_select_plain``
+   of the card's q, K6 (its scans, the header and the planes, with its
+   int32 scan held to ``dpack_scan``) and K7 (unary, reading K6's scan) in
+   both rice modes, and the composed wire; the same dpack kernels on a
+   synthetic three-channel q with an odd NBt (an odd payload offset, and L
+   not a multiple of 4), K3 on a synthetic ten-channel chunk (its in-place
+   path), and a misaligned operand, which K3's wrapper must refuse; K2's
+   posts mode and K9 (value residues) on the fallback chunk; K1 (format 0)
+   and K8 (floor0) on the floor0 chunk. K1 runs once a bucket, K2 as its
+   rank kernel then its main kernel, K4 as its chain-state scan then its
+   tiled kernel, K6 as its scan then its pack kernel. All are held with
    ``torch.equal`` (K8's twin takes K8's steps in K8's order, with the
    card's own cos/sqrt/exp; on a miss its max ulp distance and the share
    of values that differ are printed);
@@ -55,7 +60,8 @@ nothing of the JAX package: the float64 anchor is the port's own
    three timed runs each of the default f32 and s16, the fallback s16 and
    the floor0 f32: realtime factor, stage walls and device->host bytes;
    and one more s16 run under torch.profiler: the device's busy and idle
-   share of its window and its top device ops by time.
+   share of its window, its top device ops by time, and the device ops
+   that ran between each chunk's K4 (dpack mode) and K6.
 
 Any failure raises (exit code 1). Without CUDA, or without the package
 beside it, it exits 2 and prints no result. The last two lines are the
@@ -272,7 +278,20 @@ def _profile_run(run_fn, top: int = 10, tries: int = 3) -> dict:
         us, n = by_name.get(d.name, (0.0, 0))
         by_name[d.name] = (us + d.time_range.elapsed_us(), n + 1)
     tops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    # the device ops between each K4 (its tiled kernel) and the next K6
+    seq = sorted(dev, key=lambda d: d.time_range.start)
+    between, k4_then_k6 = [], 0
+    for i, d in enumerate(seq):
+        if "ola_assemble_kernel" not in d.name:
+            continue
+        j = i + 1
+        while j < len(seq) and not any(k in seq[j].name for k in (
+                "dpack_pack", "ola_assemble")):
+            between.append(seq[j].name[:60])
+            j += 1
+        k4_then_k6 += j < len(seq) and "dpack_pack" in seq[j].name
     return {"chunks": chunks, "chunks_traced": k4,
+            "k4_then_k6": k4_then_k6, "ops_between_k4_and_k6": between,
             "window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
             "busy_share": busy / (t1 - t0), "idle_share": 1 - busy / (t1 - t0),
             "device_ops": len(dev),
@@ -405,7 +424,7 @@ def _chunk(corpus, dev, output="f32", **settings):
 
 def check_kernels(corpus, dev):
     """Phase 3: K1-K4 and the dpack kernels at the first chunk's shapes."""
-    from vorbispizza_tpu_torch.ops import coupling, floor
+    from vorbispizza_tpu_torch.ops import floor
 
     synth, sig, bufs, bks = _chunk(corpus, dev)
     flo_calls = [a for bk in bks for _, w, a in synth.floor_calls(bk)]
@@ -417,18 +436,10 @@ def check_kernels(corpus, dev):
         inputs=[t for a in flo_calls for t in a[:6]],
         ops=lambda o: 8 * _numel(o), kernel="floor1_",
     )
-    stage = [(bk, synth.residues(bk), synth.floors(bk), bk["tables"]["steps"])
-             for bk in bks]
-    out["couple_spectrum"] = _compare(
-        "couple_spectrum",
-        lambda: [coupling.couple_spectrum(r, f, s) for _, r, f, s in stage],
-        lambda: [coupling.couple_spectrum_plain(r, f, s)
-                 for _, r, f, s in stage],
-        inputs=[t for _, r, f, s in stage for t in (r, f, s)],
-        ops=lambda o: sum(r.numel() * (1 + s.shape[0])
-                          for _, r, _f, s in stage),
-    )
-    spectra = [(bk, coupling.couple_spectrum(r, f, s)) for bk, r, f, s in stage]
+    out["couple_spectrum"], spectra = _check_k3("couple_spectrum", synth,
+                                                bks)
+    out["couple_spectrum_c10"] = _check_k3_wide(dev)
+    _check_k3_refuses_misaligned(synth, bks)
     out["dct_iv"] = _dct_row(synth, spectra)
     obks = [synth.ola_bucket(bk, synth.dct(bk, sp)) for bk, sp in spectra]
     evs, L, C = bufs[4:9], sig[3], synth.channels
@@ -436,7 +447,76 @@ def check_kernels(corpus, dev):
     print(f"  dpack wire: C {C}, L {L}, NBt {C * -(-L // 128)}", flush=True)
     for rice in (False, True):
         out.update(_check_dpack(obks, evs, L, rice, dev))
+        out.update(_check_dpack_synthetic(rice, dev))
     return out
+
+
+def _k3_parts(synth, bks):
+    """Each bucket's (residues, floors, steps): K3's operands."""
+    return [(synth.residues(bk), synth.floors(bk), bk["tables"]["steps"])
+            for bk in bks]
+
+
+def _check_k3(name, synth, bks):
+    """K3, one launch over every bucket of a chunk, against the twin a
+    bucket. The work: residues, floors and steps in, spectra out; a
+    product and a sum per value and coupling step. Returns the result and
+    [(bucket, its spectra)]."""
+    from vorbispizza_tpu_torch.ops import coupling
+
+    parts = _k3_parts(synth, bks)
+    res = _k3_compare(name, parts)
+    return res, list(zip(bks, coupling.couple_spectrum_chunk(parts)[1]))
+
+
+def _k3_compare(name, parts):
+    from vorbispizza_tpu_torch.ops import coupling
+
+    return _compare(
+        name,
+        lambda: coupling.couple_spectrum_chunk(parts)[1],
+        lambda: [coupling.couple_spectrum_plain(*p) for p in parts],
+        inputs=[t for p in parts for t in p],
+        ops=lambda o: sum(r.numel() * (1 + s.shape[0]) for r, _, s in parts),
+        kernel="couple_spectrum",
+    )
+
+
+def _check_k3_wide(dev):
+    """K3 past 8 channels (its in-place path) on a synthetic two-bucket,
+    ten-channel chunk made from a seed, with steps that reuse channels and
+    one whose channels coincide."""
+    import torch
+
+    g = torch.Generator().manual_seed(11)
+    steps = torch.tensor([[0, 1], [2, 3], [4, 5], [0, 2], [6, 7], [8, 9],
+                          [3, 3], [1, 9]], dtype=torch.int32).to(dev)
+    parts = []
+    for F, half in ((64, 128), (16, 1024)):
+        res = torch.randn((F, 10, half), generator=g)
+        res[torch.rand(res.shape, generator=g) < 0.2] = 0.0
+        flo = torch.rand((F, 10, half), generator=g) * 2.0
+        parts.append((res.to(dev), flo.to(dev), steps))
+    return _k3_compare("couple_spectrum (10 channels, synthetic)", parts)
+
+
+def _check_k3_refuses_misaligned(synth, bks):
+    """A residue view 4 bytes off a 16-byte boundary: K3's wrapper must
+    raise rather than launch."""
+    import torch
+
+    from vorbispizza_tpu_torch.ops import coupling
+
+    res, flo, steps = _k3_parts(synth, bks[:1])[0]
+    buf = torch.empty(res.numel() + 1, dtype=res.dtype, device=res.device)
+    mis = buf[1:].view(res.shape)
+    try:
+        coupling.couple_spectrum_chunk([(mis, flo, steps)])
+    except ValueError as e:
+        print(f"  couple_spectrum_chunk refuses a misaligned view: {e}",
+              flush=True)
+        return
+    raise AssertionError("couple_spectrum_chunk took a misaligned operand")
 
 
 def _check_k1(name, synth, bks):
@@ -483,13 +563,9 @@ def _dct_row(synth, spectra):
     return res
 
 
-def _ola_operands(synth, bks):
-    """K4's bucket operands of a chunk, made by the kernels before it."""
-    from vorbispizza_tpu_torch.ops import coupling
-
-    return [synth.ola_bucket(bk, synth.dct(bk, coupling.couple_spectrum(
-        synth.residues(bk), synth.floors(bk), bk["tables"]["steps"])))
-        for bk in bks]
+def _ola_operands(synth, spectra):
+    """K4's bucket operands of a chunk from K3's [(bucket, spectra)]."""
+    return [synth.ola_bucket(bk, synth.dct(bk, sp)) for bk, sp in spectra]
 
 
 def _outs(x) -> list:
@@ -520,51 +596,75 @@ def _check_k4(obks, evs, L, C, suffix):
 
 def _check_dpack(obks, evs, L, rice, dev, suffix=""):
     """The select (K4's dpack mode, into a wire's widx table) against
-    ``dpack_select_plain`` of the card's q, K6 and (rice) K7 on the card's
-    q and select, then ``dpack_wire`` on them against the composed twin,
-    below nbytes (full-capacity wire). A function of its own per rice mode,
-    so the kept closures bind this mode's buffers."""
-    import torch
-
+    ``dpack_select_plain`` of the card's q, then K6, K7 and the composed
+    wire on the card's q and select (``_check_k6_k7``). A function of its
+    own per rice mode, so the kept closures bind this mode's buffers."""
     from vorbispizza_tpu_torch.ops import ola
     from vorbispizza_tpu_torch.ops import pcm_pack as pp
 
     C = obks[0][0].shape[1]
-    nbt = pp.wire_rows(L, C)
-    hdr = pp.wire_header_bytes(C)
-    cap, ucap, urow = pp.wire_caps(nbt, True)
+    cap, ucap, _ = pp.wire_caps(pp.wire_rows(L, C), True)
     tag, key = (" (rice)", "_rice") if rice else (" (width-only)", "")
-    tag, key = tag + suffix, key + suffix
     wire, wview = pp.wire_buffer(C, L, cap, ucap, rice, dev)
     q, wbyte, ubits = ola.ola_assemble(obks, evs, L, "dpack", rice=rice,
                                        wbyte=wview)
-    out = {}
-    out["dpack_select" + key] = _compare(
-        "dpack_select" + tag,
+    out = {"dpack_select" + key + suffix: _compare(
+        "dpack_select" + tag + suffix,
         lambda: list(ola.ola_assemble(obks, evs, L, "dpack", rice=rice,
                                       wbyte=wview)),
         lambda: [q, *pp.dpack_select_plain(q, rice)],
         inputs=[t for b in obks for t in b] + list(evs),
         ops=lambda _: 36 * q.numel(), kernel="ola_assemble",
-    )
-    scan = pp.dpack_scan(wbyte, ubits, urow, rice)
-    nb_plane = 16 * int(scan["gcum"][-1])
-    n_k6 = hdr + nbt + min(nb_plane, 16 * cap)
+    )}
+    out.update(_check_k6_k7(q, wire, wbyte, ubits, rice, suffix))
+    return out
+
+
+def _scan_parts(scan, C, NB, rice):
+    """The fields of K6's int32 scan (its padding apart)."""
+    from vorbispizza_tpu_torch.ops import pcm_pack as pp
+
+    return [v for v in pp.scan_fields(scan, C, NB, rice).values()
+            if v is not None]
+
+
+def _check_k6_k7(q, wire, wbyte, ubits, rice, suffix):
+    """K6 (its scan into int32 scratch, the header and the planes; two
+    device ops) against ``dpack_scan`` and ``dpack_pack_plain``: the scan's
+    fields and the wire below the kept plane section's end. K7 (rice) on
+    K6's scan against ``dpack_unary_plain``, then ``dpack_wire`` against
+    the composed twin below nbytes (full-capacity wire)."""
+    import torch
+
+    from vorbispizza_tpu_torch.ops import pcm_pack as pp
+
+    C, L = q.shape
+    nbt = pp.wire_rows(L, C)
+    hdr = pp.wire_header_bytes(C)
+    cap, ucap, urow = pp.wire_caps(nbt, True)
+    tag, key = (" (rice)", "_rice") if rice else (" (width-only)", "")
+    tag, key = tag + suffix, key + suffix
+    scan_p = pp.dpack_scan(wbyte, ubits, urow, rice, C)
+    n_k6 = hdr + nbt + min(16 * int(scan_p[0]), 16 * cap)
+    out = {}
     out["dpack_pack" + key] = _compare(
         "dpack_pack" + tag,
-        lambda: pp.dpack_pack(q, wire, scan, cap, rice),
-        lambda: pp.dpack_pack_plain(q, wbyte, scan, cap, rice),
-        inputs=[q, wbyte, *scan.values()], ops=lambda _: 8 * q.numel(),
-        kernel="dpack_pack", view_k=lambda _: [wire[:n_k6]],
-        view_p=lambda w: [w[:n_k6]],
+        lambda: pp.dpack_pack(q, wire, ubits, cap, urow, rice),
+        lambda: (pp.dpack_pack_plain(q, wbyte, scan_p, cap, rice),
+                 pp.dpack_scan(wbyte, ubits, urow, rice, C)),
+        inputs=[q, wbyte, ubits if rice else None],
+        ops=lambda _: 8 * q.numel(), kernel="dpack_pack",
+        view_k=lambda sc: [wire[:n_k6], *_scan_parts(sc, C, nbt // C, rice)],
+        view_p=lambda o: [o[0][:n_k6], *_scan_parts(o[1], C, nbt // C, rice)],
     )
+    scan_k = pp.dpack_pack(q, wire, ubits, cap, urow, rice)
     if rice:
-        ub = min(4 * int(scan["ucum"][-1]), 4 * ucap)
+        ub = min(4 * int(scan_p[1]), 4 * ucap)
         out["dpack_unary" + suffix] = _compare(
             "dpack_unary" + tag,
-            lambda: pp.dpack_unary(q, wire, scan, cap, ucap, urow),
+            lambda: pp.dpack_unary(q, wire, scan_k, cap, ucap, urow),
             lambda: pp.dpack_unary_plain(q, wbyte, ucap, urow),
-            inputs=[q, wbyte, *scan.values()],
+            inputs=[q, wbyte, scan_k],
             ops=lambda _: 8 * q.numel(), kernel="dpack_unary",
             view_k=lambda _: [wire[n_k6 : n_k6 + ub]],
             view_p=lambda u: [u[:ub]],
@@ -576,11 +676,35 @@ def _check_dpack(obks, evs, L, rice, dev, suffix=""):
     if not torch.equal(wk[: hdr + nbt + nb], wp[: hdr + nbt + nb]):
         raise AssertionError(f"dpack_wire{tag}: kernels differ from twin")
     print(f"  dpack_wire{tag}: {nb} payload bytes "
-          f"({nb / (2 * C * L):.4f} of raw s16), equal to the twin",
-          flush=True)
+          f"({nb / (2 * C * L):.4f} of raw s16), payload at byte {hdr + nbt} "
+          f"of the wire, equal to the twin", flush=True)
     return out
 
 
+def _check_dpack_synthetic(rice, dev):
+    """K6 and K7 on a synthetic three-channel q made from a seed (tones,
+    noise and a few full-scale steps), whose NBt is odd, so the payload
+    starts at an odd byte and K6 stores bytes; L is not a multiple of 4, so
+    K6 reads q a sample at a time. The select is the twin's."""
+    import torch
+
+    from vorbispizza_tpu_torch.ops import pcm_pack as pp
+
+    C, L = 3, 128 * 1001 - 51
+    g = torch.Generator().manual_seed(5)
+    t = torch.arange(L, dtype=torch.float64)
+    q = torch.stack([(9000 - 1500 * c) * torch.sin(t * (0.031 + 0.007 * c))
+                     + 40 * torch.randn(L, generator=g, dtype=torch.float64)
+                     for c in range(C)])
+    q[:, 50_000:50_300] = 32000.0
+    q = q.round().clamp(-32768, 32767).to(torch.int16).to(dev)
+    nbt = pp.wire_rows(L, C)
+    assert (pp.wire_header_bytes(C) + nbt) % 2 == 1
+    cap, ucap, _ = pp.wire_caps(nbt, True)
+    wire, wview = pp.wire_buffer(C, L, cap, ucap, rice, dev)
+    wbyte, ubits = pp.dpack_select_plain(q, rice)
+    wview.copy_(wbyte)
+    return _check_k6_k7(q, wire, wview, ubits, rice, "_odd")
 def check_fallback_kernels(corpus, dev):
     """Phase 3, fallback wires: K2's posts mode, K9 and K4 on the first
     chunk prepared under the fallback config."""
@@ -616,8 +740,14 @@ def check_fallback_kernels(corpus, dev):
         library_fn=lambda: [torch.index_select(a[0], 0, i)
                             for a, i in zip(vals, idx)],
     )
-    out.update(_check_k4(_ola_operands(synth, bks), bufs[4:9], sig[3],
-                         synth.channels, K4_CHUNKS["fallback"]))
+    sfx = K4_CHUNKS["fallback"]
+    out["couple_spectrum" + sfx], spectra = _check_k3(
+        "couple_spectrum" + sfx, synth, bks)
+    out.update(_check_k4(_ola_operands(synth, spectra), bufs[4:9], sig[3],
+                         synth.channels, sfx))
+    for rice in (False, True):
+        out.update(_check_dpack(_ola_operands(synth, spectra), bufs[4:9],
+                                sig[3], rice, dev, sfx))
     return out
 
 
@@ -661,8 +791,10 @@ def check_floor0_kernel(corpus, dev):
                           for a in calls),
         check=_floor0_check,
     )}
-    obks = _ola_operands(synth, bks)
     suffix = K4_CHUNKS["floor0"]
+    out["couple_spectrum" + suffix], spectra = _check_k3(
+        "couple_spectrum" + suffix, synth, bks)
+    obks = _ola_operands(synth, spectra)
     out.update(_check_k4(obks, bufs[4:9], sig[3], synth.channels, suffix))
     for rice in (False, True):
         out.update(_check_dpack(obks, bufs[4:9], sig[3], rice, dev, suffix))

@@ -269,10 +269,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     """K6 and K7 have no twin behind their wrappers: a CPU tensor raises."""
     q = torch.zeros((1, 256), dtype=torch.int16)
     wbyte, ubits = pp.dpack_select(q, True)  # CPU: the twin
-    scan = pp.dpack_scan(wbyte, ubits, pp.UNARY_ROW_WORDS_SOFT, True)
+    scan = pp.dpack_scan(wbyte, ubits, pp.UNARY_ROW_WORDS_SOFT, True, 1)
     wire = torch.zeros(pp.wire_bytes(1, 2, 36, 144, True), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
-        pp.dpack_pack(q, wire, scan, 36, True)
+        pp.dpack_pack(q, wire, ubits, 36, pp.UNARY_ROW_WORDS_SOFT, True)
     with pytest.raises(ValueError, match="CUDA"):
         pp.dpack_unary(q, wire, scan, 36, 144, 72)
 

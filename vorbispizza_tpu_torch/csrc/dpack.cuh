@@ -1,6 +1,7 @@
 // Shared pieces of the dpack s16 wire kernels: K4's dpack mode (the
 // select, ola_assemble.cu), K6 and K7 (dpack_pack.cu, dpack_unary.cu): the
-// width table and the per-sample candidate zigzag, rebuilt from q.
+// width table, the per-sample candidate zigzag, rebuilt from q, and the
+// layout of K6's scan.
 //
 // q is int16 [C, L] (already in the s16 range). A block row r covers
 // channel c = r / NB, samples 128*(r % NB) ... +127; samples past L are
@@ -25,6 +26,25 @@
 // pcm_pack.WIDTHS (must match vp_unpack_pcm's table in native/frontend.cpp)
 static __constant__ int vp_widths[VP_NW] = {0, 1, 2, 3, 4, 5, 6, 8, 10, 12,
                                             15, 18};
+
+// K6's scan scratch (pcm_pack.scan_fields), int32: [0] the plane groups G,
+// [1] the unary words U, [2] 1 when a rice block's unary words overflow the
+// deposit row, [3] 0; from VP_SCAN_HEAD the exclusive group offset of each
+// tile (VP_TILE_ROWS consecutive block rows of one channel: a K6 pack CTA's
+// rows), nt = C * vp_tiles(NB) of them, in row order; on a rice wire, from
+// VP_SCAN_HEAD + vp_scan_pad(nt), each tile's exclusive unary-word offset,
+// and from VP_SCAN_HEAD + 2 * vp_scan_pad(nt) each block row's (written by
+// K6's pack kernel). K6 writes it, K7 reads it.
+#define VP_SCAN_HEAD 4
+#define VP_TILE_ROWS 32
+
+__host__ __device__ __forceinline__ int vp_scan_pad(int n) {
+  return (n + 3) & ~3;
+}
+
+__host__ __device__ __forceinline__ int vp_tiles(int NB) {
+  return (NB + VP_TILE_ROWS - 1) / VP_TILE_ROWS;
+}
 
 __device__ __forceinline__ int32_t vp_q(const int16_t* __restrict__ q,
                                         int64_t L, int c, int64_t i) {

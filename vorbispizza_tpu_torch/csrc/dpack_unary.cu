@@ -12,9 +12,10 @@
 // lengths (warp shuffles, then the four warp totals) gives each
 // terminator's bit; it is ORed into a shared-memory row of cap_urow words
 // (bits past the row are dropped; the reference then reports nbytes
-// 0x7FFFFFF0, which K6 writes from the torch-side `over` flag). The row's
-// ceil(bits/32) words go to word uoff (exclusive scan of words per block,
-// torch glue) of the unary section, words at or past cap_uwords dropped;
+// 0x7FFFFFF0, which K6's scan writes from its row-overflow flag). The row's
+// ceil(bits/32) words go to word uoff (K6's scan: the exclusive unary-word
+// offset of the row) of the unary section, words at or past cap_uwords
+// dropped;
 // the section starts at min(plane bytes, 16*cap_groups) of the payload,
 // right after the true plane bytes as the reference places it.
 //
@@ -25,8 +26,7 @@
 __global__ void dpack_unary_kernel(const int16_t* __restrict__ q,
                                    const int32_t* __restrict__ partner,
                                    uint8_t* __restrict__ wire,
-                                   const int64_t* __restrict__ gcum,
-                                   const int64_t* __restrict__ ucum, int64_t C,
+                                   const int32_t* __restrict__ scan, int64_t C,
                                    int64_t L, int64_t NB, int64_t HDR,
                                    int64_t cap_groups, int64_t cap_uwords,
                                    int cap_urow) {
@@ -63,8 +63,9 @@ __global__ void dpack_unary_kernel(const int16_t* __restrict__ q,
   if ((pos >> 5) < cap_urow) atomicOr(&rowbuf[pos >> 5], 1u << (pos & 31));
   __syncthreads();
   const int64_t uw = (total + 31) >> 5;
-  const int64_t uoff = ucum[row] - uw;
-  const int64_t plane = 16 * gcum[NBt - 1];
+  const int64_t uoff =
+      scan[VP_SCAN_HEAD + 2 * vp_scan_pad((int)C * vp_tiles((int)NB)) + row];
+  const int64_t plane = 16 * (int64_t)scan[0];
   const int64_t start = plane < 16 * cap_groups ? plane : 16 * cap_groups;
   uint8_t* dst = wire + HDR + NBt + start;
   for (int64_t l = t; l < uw; l += VP_BLOCK) {
@@ -74,8 +75,9 @@ __global__ void dpack_unary_kernel(const int16_t* __restrict__ q,
   }
 }
 
+// scan: K6's (dpack.cuh), made for this wire with rice on
 VP_API int vp_dpack_unary(const void* q, const void* partner, void* wire,
-                          const void* gcum, const void* ucum, int64_t C,
+                          const void* scan, int64_t C,
                           int64_t L, int64_t NB, int64_t HDR,
                           int64_t cap_groups, int64_t cap_uwords,
                           int64_t cap_urow, void* stream) {
@@ -85,7 +87,7 @@ VP_API int vp_dpack_unary(const void* q, const void* partner, void* wire,
   if (rows > 0) {
     dpack_unary_kernel<<<(unsigned)rows, VP_BLOCK, 0, (cudaStream_t)stream>>>(
         (const int16_t*)q, (const int32_t*)partner, (uint8_t*)wire,
-        (const int64_t*)gcum, (const int64_t*)ucum, C, L, NB, HDR, cap_groups,
+        (const int32_t*)scan, C, L, NB, HDR, cap_groups,
         cap_uwords, (int)cap_urow);
   }
   return (int)cudaGetLastError();

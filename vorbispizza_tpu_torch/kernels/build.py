@@ -49,10 +49,10 @@ SIGNATURES = {
     "vp_floor1_posts": [P] * 6 + [I] * 4 + [P],
     "vp_floor0_synth": [P] * 6 + [I] * 3 + [D] * 2 + [P],
     "vp_residue_gather": [P] * 3 + [I] * 4 + [P],
-    "vp_couple_spectrum": [P] * 4 + [I] * 4 + [P],
+    "vp_couple_spectrum": [P] + [I] * 2 + [P],
     "vp_ola_assemble": [P] * 11 + [I] * 7 + [P],
-    "vp_dpack_pack": [P] * 6 + [I] * 6 + [P],
-    "vp_dpack_unary": [P] * 5 + [I] * 7 + [P],
+    "vp_dpack_pack": [P] * 5 + [I] * 7 + [P],
+    "vp_dpack_unary": [P] * 4 + [I] * 7 + [P],
 }
 
 #: launches per kernel since the last reset (chip_smoke reads these to

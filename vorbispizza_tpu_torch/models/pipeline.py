@@ -18,12 +18,14 @@ and every output of the reference:
     floors:   floor.floor1_from_ys (K2, coded-ys wire),
               floor.floor1_from_posts (K2 posts mode, posts/step2 wire) or
               floor.floor0_curves (K8, floor0)
-    -> coupling.couple_spectrum (K3) -> imdct.dct_iv (torch.matmul)
+    -> coupling.couple_spectrum_chunk (K3, one launch over every bucket)
+    -> imdct.dct_iv (torch.matmul, a bucket at a time)
     -> ola.ola_assemble (K4, with the IMDCT epilogue folded in; "f32"
        PCM, or the s16 quantize in registers for "s16"/"s16p"; for the
        dpack wires its dpack mode: q and the wire's per-block select)
-    -> for "s16d"/"s16df": pcm_pack.dpack_wire (K6 header and planes, K7
-       unary on a rice wire), into the one u8 wire buffer K4 began
+    -> for "s16d"/"s16df": pcm_pack.dpack_wire (K6: its scans, the header
+       and the planes; K7 unary on a rice wire), into the one u8 wire
+       buffer K4 began
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from ..frames import (
     setup_sid,
 )
 from ..native.symbols import _vec_shape
-from ..ops.coupling import couple_spectrum
+from ..ops.coupling import couple_spectrum_chunk
 from ..ops.floor import (
     floor0_curves,
     floor0_tables,
@@ -943,11 +945,13 @@ class BatchSynthesizer(nn.Module):
         "s16" int16 [C, out_len]; "s16p" u8 [2, C, out_len]; "s16d" and
         "s16df" the dpack wire, u8 (the kept samples are the first
         ``total`` columns)."""
-        ola_buckets = []
-        for bk in self.buckets(sig, bufs):
-            spectra = couple_spectrum(self.residues(bk), self.floors(bk),
-                                      bk["tables"]["steps"])
-            ola_buckets.append(self.ola_bucket(bk, self.dct(bk, spectra)))
+        bks = self.buckets(sig, bufs)
+        # K3 once over every bucket's residues and floors
+        _, spectra = couple_spectrum_chunk([
+            (self.residues(bk), self.floors(bk), bk["tables"]["steps"])
+            for bk in bks])
+        ola_buckets = [self.ola_bucket(bk, self.dct(bk, sp))
+                       for bk, sp in zip(bks, spectra)]
         output, L, C, rice = sig[5], sig[3], self.channels, sig[6]
         if output not in DPACK:
             return ola_assemble(ola_buckets, bufs[4:9], L, output)

@@ -17,15 +17,18 @@ plain PyTorch twin:
 
     select   (K4's dpack mode, csrc/ola_assemble.cu)  widx|flags byte +
              unary bits per block, from the q K4 has just made
-    K6 dpack_pack   (csrc/dpack_pack.cu)    header + plane section
+    K6 dpack_pack   (csrc/dpack_pack.cu)    the scans, header + plane
+                                            section
     K7 dpack_unary  (csrc/dpack_unary.cu)   unary section (rice wires only)
 
 The select (``dpack_select_plain`` is its twin) emits only the CHOICE per
 block; K6 and K7 rebuild the winner's zigzag from q (four int16 reads per
 sample) instead of reading a [NBt, 128] u32 plane and a [NBt, 128] i32
 unary-length tensor that the select would have to write: 1 KiB a block of
-device traffic saved twice. The exclusive scans between stages are torch
-``cumsum`` glue (``dpack_scan``).
+device traffic saved twice. The exclusive scans between the stages (each
+block's offset in 16-byte groups and in unary words, the channel cuts, the
+row-overflow flag) run in K6's C entry into an int32 scratch that K7 reads
+(``scan_fields``); ``dpack_scan`` is its plain twin.
 
 ``select_candidate_plain`` is the reference's ``select_candidate``;
 ``dpack_wire_plain`` its ``pack_pcm`` plus the header, byte-identical to
@@ -251,18 +254,77 @@ def _winner(q: torch.Tensor, wbyte: torch.Tensor) -> torch.Tensor:
     return torch.stack(cands)[cand, rows]
 
 
+#: K6's scan scratch (csrc/dpack.cuh): int32 [groups, unary words, row
+#: overflow, 0], then from SCAN_HEAD the exclusive group offset of each tile
+#: (TILE_ROWS consecutive block rows of one channel, a K6 pack CTA's) and,
+#: on a rice wire, each tile's exclusive unary-word offset, then each block
+#: row's; the tile runs padded to a multiple of 4 entries
+SCAN_HEAD = 4
+TILE_ROWS = 32
+
+
+def _tiles(C: int, NB: int) -> int:
+    return C * -(-NB // TILE_ROWS)
+
+
+def scan_size(C: int, NB: int, rice: bool) -> int:
+    """int32 entries of K6's scan scratch for C channels of NB blocks."""
+    pad = -(-_tiles(C, NB) // 4) * 4
+    return SCAN_HEAD + pad + (pad + C * NB if rice else 0)
+
+
+def scan_fields(scan, C: int, NB: int, rice: bool) -> dict:
+    """Views of K6's scan: "groups", "uwords", "over" (one entry each),
+    "tiles" (each tile's exclusive group offset) and, on a rice wire,
+    "utiles" and "uex" (each tile's and each block row's exclusive
+    unary-word offset)."""
+    nt = _tiles(C, NB)
+    pad = -(-nt // 4) * 4
+    u0, r0 = SCAN_HEAD + pad, SCAN_HEAD + 2 * pad
+    return {"groups": scan[0:1], "uwords": scan[1:2], "over": scan[2:3],
+            "tiles": scan[SCAN_HEAD : SCAN_HEAD + nt],
+            "utiles": scan[u0 : u0 + nt] if rice else None,
+            "uex": scan[r0 : r0 + C * NB] if rice else None}
+
+
+def tile_starts(C: int, NB: int) -> np.ndarray:
+    """The first block row of each of K6's tiles, in row order."""
+    first = np.arange(0, NB, TILE_ROWS)
+    return (np.arange(C)[:, None] * NB + first[None, :]).reshape(-1)
+
+
+def check_scan_range(nbt: int) -> None:
+    """K6's scan sums in int32: a block has at most 18 groups and 72 unary
+    words, so 72 * nbt must stay below 2^31."""
+    if UNARY_WORDS_FULL_PER_BLOCK * nbt >= 2**31:
+        raise ValueError(f"K6 scans in 32 bits: 72 * NBt ({nbt}) must stay "
+                         "below 2^31")
+
+
 def dpack_scan(wbyte: torch.Tensor, ubits: torch.Tensor, cap_urow: int,
-               rice: bool) -> dict:
-    """Torch glue between the kernels: inclusive scans of 16-byte groups
-    (gcum) and unary words (ucum) per block, and whether any block's
-    unary words exceed the deposit row (over, int32 [1])."""
+               rice: bool, C: int) -> torch.Tensor:
+    """Plain twin of K6's scan (int64 cumsums, stored as int32 in its
+    layout, ``scan_fields``) of the C channels' widx table ``wbyte`` and
+    unary bits ``ubits``: the tiles' exclusive offsets in 16-byte groups,
+    (rice) the tiles' and the blocks' in unary words, their totals, and
+    whether a block's unary words exceed the deposit row."""
+    nbt = wbyte.shape[0]
+    NB = nbt // max(C, 1)
+    check_scan_range(nbt)
+    out = torch.zeros(scan_size(C, NB, rice), dtype=torch.int32,
+                      device=wbyte.device)
+    f = scan_fields(out, C, NB, rice)
     w = _table(WIDTHS, wbyte.device)[(wbyte & 0x1F).long()]
-    scan = {"gcum": torch.cumsum(w, 0), "ucum": None, "over": None}
+    f["groups"][0] = w.sum()
+    starts = torch.from_numpy(tile_starts(C, NB)).to(wbyte.device)
+    f["tiles"][:] = (torch.cumsum(w, 0) - w)[starts]
     if rice:
         uw = (ubits.to(torch.int64) + 31) >> 5
-        scan["ucum"] = torch.cumsum(uw, 0)
-        scan["over"] = (uw > cap_urow).any().to(torch.int32).reshape(1)
-    return scan
+        f["uwords"][0] = uw.sum()
+        f["over"][0] = (uw > cap_urow).any()
+        f["uex"][:] = torch.cumsum(uw, 0) - uw
+        f["utiles"][:] = f["uex"][starts]
+    return out
 
 
 def _le_bytes(x: torch.Tensor) -> torch.Tensor:
@@ -328,21 +390,22 @@ def pack_unary_plain(ulen: torch.Tensor, channels: int, cap_words: int,
 
 def dpack_pack_plain(q, wbyte, scan, cap_groups: int, rice: bool):
     """Twin of K6: header + widx + plane section, u8 [HDR + NBt +
-    16*cap_groups]."""
+    16*cap_groups]. ``scan``: ``dpack_scan``'s."""
     C = q.shape[0]
     NBt = wbyte.shape[0]
     NB = NBt // max(C, 1)
     dev = q.device
+    f = {k: None if v is None else v.to(torch.int64)
+         for k, v in scan_fields(scan, C, NB, rice).items()}
     blk = _winner(q, wbyte)
     w = _table(WIDTHS, dev)[(wbyte & 0x1F).long()]
     blk = blk & ((1 << w[:, None]) - 1)
     planes, _ = pack_planes_plain(blk, (wbyte & 0x1F).long(), cap_groups)
-    nbytes = 16 * scan["gcum"][-1:]
+    nbytes = 16 * f["groups"] + 4 * f["uwords"]
+    nbytes = torch.where(f["over"] > 0, ROW_OVER_NBYTES, nbytes)
     cuts = torch.zeros(C, dtype=torch.int64, device=dev)
-    if rice:
-        nbytes = nbytes + 4 * scan["ucum"][-1:]
-        nbytes = torch.where(scan["over"] > 0, ROW_OVER_NBYTES, nbytes)
-        cuts = 32 * scan["ucum"][torch.arange(1, C + 1, device=dev) * NB - 1]
+    if rice:  # the unary words up to each channel's end
+        cuts = 32 * torch.cat([f["uex"][NB::NB][: C - 1], f["uwords"]])
     head = torch.cat([nbytes, _table([16 * cap_groups], dev), cuts])
     return torch.cat([_le_bytes(head), wbyte, planes])
 
@@ -364,14 +427,14 @@ def dpack_wire_plain(q: torch.Tensor, cap_groups: int, cap_uwords: int,
     C = q.shape[0]
     wbyte, ubits = select if select is not None else dpack_select_plain(
         q, rice)
-    scan = dpack_scan(wbyte, ubits, cap_urow, rice)
+    scan = dpack_scan(wbyte, ubits, cap_urow, rice, C)
     wire = dpack_pack_plain(q, wbyte, scan, cap_groups, rice)
     if not rice:
         return wire
     unary = dpack_unary_plain(q, wbyte, cap_uwords, cap_urow)
     pay = torch.cat([wire[wire_header_bytes(C) + wbyte.shape[0]:],
                      torch.zeros_like(unary)])
-    start = min(16 * int(scan["gcum"][-1]), 16 * cap_groups)
+    start = min(16 * int(scan[0]), 16 * cap_groups)
     pay[start : start + unary.shape[0]] = unary
     return torch.cat([wire[: wire_header_bytes(C) + wbyte.shape[0]], pay])
 
@@ -418,39 +481,54 @@ def wire_buffer(C: int, L: int, cap_groups: int, cap_uwords: int, rice: bool,
     return wire, wire[HDR : HDR + NBt]
 
 
-def dpack_pack(q: torch.Tensor, wire: torch.Tensor, scan: dict,
-               cap_groups: int, rice: bool) -> None:
-    """K6 into ``wire`` (CUDA only): the header and the plane section. The
-    widx table must already be in the wire (K4's dpack mode writes it
-    there)."""
+def dpack_pack(q: torch.Tensor, wire: torch.Tensor, ubits: torch.Tensor | None,
+               cap_groups: int, cap_urow: int, rice: bool) -> torch.Tensor:
+    """K6 into ``wire`` (CUDA only): its C entry scans the widx table that
+    K4's dpack mode wrote into the wire (and, on a rice wire, K4's unary
+    bits ``ubits``) into an int32 scratch, writes the header and packs the
+    plane section; two device ops and no torch op. Returns the scratch
+    (``scan_fields``), which K7 reads on a rice wire."""
     _check_q(q)
-    K.require_cuda(wire, scan["gcum"])
+    K.require_cuda(wire)
     C, L = q.shape
     NB = -(-L // BLOCK)
-    ucum, over = (scan["ucum"], scan["over"]) if rice else (None, None)
+    nbt = C * NB
+    check_scan_range(nbt)
     if rice:
-        K.require_cuda(ucum, over)
-    K.launch("dpack_pack", q.data_ptr(), partner_table(C, q.device).data_ptr(),
-             wire.data_ptr(), scan["gcum"].data_ptr(),
-             ucum.data_ptr() if rice else 0, over.data_ptr() if rice else 0,
-             C, L, NB, wire_header_bytes(C), cap_groups, int(rice))
+        K.require_cuda(ubits)
+        if ubits.dtype != torch.int32 or ubits.shape != (nbt,):
+            raise ValueError(f"ubits must be int32 [{nbt}]")
+    if wire.data_ptr() % 16 or not 0 <= cap_groups < 2**31:
+        raise ValueError("K6 takes a 16-byte aligned wire (wire_buffer) and "
+                         "cap_groups below 2^31")
+    scan = torch.empty(scan_size(C, NB, rice), dtype=torch.int32,
+                       device=q.device)
+    if nbt:
+        K.launch("dpack_pack", q.data_ptr(),
+                 partner_table(C, q.device).data_ptr(), wire.data_ptr(),
+                 ubits.data_ptr() if rice else 0, scan.data_ptr(), C, L, NB,
+                 wire_header_bytes(C), cap_groups, cap_urow, int(rice))
+    return scan
 
 
-def dpack_unary(q: torch.Tensor, wire: torch.Tensor, scan: dict,
+def dpack_unary(q: torch.Tensor, wire: torch.Tensor, scan: torch.Tensor,
                 cap_groups: int, cap_uwords: int, cap_urow: int) -> None:
     """K7 into ``wire`` (CUDA only): the unary section, placed at
-    min(plane bytes, 16*cap_groups) of the payload."""
+    min(plane bytes, 16*cap_groups) of the payload. ``scan``: what K6
+    returned for this wire with rice on."""
     _check_q(q)
-    K.require_cuda(wire, scan["gcum"], scan["ucum"])
+    K.require_cuda(wire, scan)
     if not 0 < cap_urow <= UNARY_WORDS_FULL_PER_BLOCK:
         raise ValueError(f"cap_urow {cap_urow} outside 1..72")
     C, L = q.shape
     NB = -(-L // BLOCK)
+    if scan.dtype != torch.int32 or scan.numel() != scan_size(C, NB, True):
+        raise ValueError("scan is not K6's scan of a rice wire of this q")
     if C * NB:
         K.launch("dpack_unary", q.data_ptr(),
                  partner_table(C, q.device).data_ptr(), wire.data_ptr(),
-                 scan["gcum"].data_ptr(), scan["ucum"].data_ptr(), C, L, NB,
-                 wire_header_bytes(C), cap_groups, cap_uwords, cap_urow)
+                 scan.data_ptr(), C, L, NB, wire_header_bytes(C), cap_groups,
+                 cap_uwords, cap_urow)
 
 
 def dpack_wire(q: torch.Tensor, cap_groups: int, cap_uwords: int,
@@ -461,8 +539,9 @@ def dpack_wire(q: torch.Tensor, cap_groups: int, cap_uwords: int,
     widx table is ``select``'s first tensor.
 
     CPU tensors: ``dpack_wire_plain`` (copied into ``wire`` when given).
-    CUDA ones: scans -> K6 (-> K7 on a rice wire) into ``wire``; both
-    arguments are required. Bytes past nbytes are unspecified."""
+    CUDA ones: K6 (its scans, the header and the planes; -> K7 on a rice
+    wire) into ``wire``; both arguments are required. Bytes past nbytes
+    are unspecified."""
     if q.device.type == "cpu":
         out = dpack_wire_plain(q, cap_groups, cap_uwords, cap_urow, rice,
                                select)
@@ -481,8 +560,7 @@ def dpack_wire(q: torch.Tensor, cap_groups: int, cap_uwords: int,
             or wbyte.data_ptr() != wire.data_ptr() + HDR
             or wbyte.shape != (NBt,)):
         raise ValueError("the select's widx table is not this wire's")
-    scan = dpack_scan(wbyte, ubits, cap_urow, rice)
-    dpack_pack(q, wire, scan, cap_groups, rice)
+    scan = dpack_pack(q, wire, ubits, cap_groups, cap_urow, rice)
     if rice:
         dpack_unary(q, wire, scan, cap_groups, cap_uwords, cap_urow)
     return wire
