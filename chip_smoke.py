@@ -13,26 +13,32 @@ nothing of the JAX package: the float64 anchor is the port's own
 2. the kernel build (nvcc, sm_90a) and its time;
 3. each kernel against its plain PyTorch twin on the card, at the shapes
    of the first merged chunk of its path, with the bound of its work
-   (bytes over 3.35 TB/s or operations over 67 TFLOP/s, counted from this
-   run's inputs). K1 and K2 on the committed corpus's chunk; K3 (one
-   launch over every bucket of a chunk) and K4 in its four modes (f32,
-   s16, s16p and dpack, the last with rice off and on) on that chunk, on it
-   prepared under the fallback config (floor1_wire="posts",
-   residue_transport="values") and on the floor0 corpus's chunk; on all
-   three, the dpack select (K4's dpack mode) against ``dpack_select_plain``
-   of the card's q, K6 (its scans, the header and the planes, with its
-   int32 scan held to ``dpack_scan``) and K7 (unary, reading K6's scan) in
-   both rice modes, and the composed wire; the same dpack kernels on a
-   synthetic three-channel q with an odd NBt (an odd payload offset, and L
-   not a multiple of 4), K3 on a synthetic ten-channel chunk (its in-place
-   path), and a misaligned operand, which K3's wrapper must refuse; K2's
-   posts mode and K9 (value residues) on the fallback chunk; K1 (format 0)
-   and K8 (floor0) on the floor0 chunk. K1 runs once a bucket, K2 as its
-   rank kernel then its main kernel, K4 as its chain-state scan then its
-   tiled kernel, K6 as its scan then its pack kernel. All are held with
-   ``torch.equal`` (K8's twin takes K8's steps in K8's order, with the
-   card's own cos/sqrt/exp; on a miss its max ulp distance and the share
-   of values that differ are printed);
+   (bytes over 3.35 TB/s or operations over 67 TFLOP/s, counted from
+   this run's inputs: for K7 and K8 what their data makes them read, the
+   rice rows' q and the used rows' coefficients). K1 and K2 on the
+   committed corpus's chunk; K3 (one launch over every bucket of a
+   chunk) and K4 in its four modes (f32, s16, s16p and dpack, the last
+   with rice off and on) on that chunk, on it prepared under the
+   fallback config (floor1_wire="posts", residue_transport="values") and
+   on the floor0 corpus's chunk; on all three, the dpack select (K4's
+   dpack mode) against ``dpack_select_plain`` of the card's q, K6 (its
+   scans, the header and the planes, with its int32 scan held to
+   ``dpack_scan``) and K7 (unary, reading K6's scan) in both rice modes
+   (K7 under the full and the soft caps), and the composed wire; the
+   same dpack kernels on a synthetic three-channel q with an odd NBt (an
+   odd payload offset, and L not a multiple of 4), there K7 also with a
+   third of the rice rows one rung lower and a third two lower, so that
+   the soft row cap and section cap both cut; K3 on a synthetic
+   ten-channel chunk (its in-place path), and a misaligned operand,
+   which K3's wrapper must refuse; K2's posts mode and K9 (value
+   residues) on the fallback chunk; K1 (format 0) and K8 (floor0) on the
+   floor0 chunk, K8 also at orders 32 and 31 over half 1024 (G = 16,384,
+   synthetic). K1 runs once a bucket, K2 as its rank kernel then its
+   main kernel, K4 as its chain-state scan then its tiled kernel, K6 as
+   its scan then its pack kernel. All are held with ``torch.equal``
+   (K8's twin takes K8's steps in K8's order, with the card's own
+   cos/sqrt/exp; on a miss its max ulp distance and the share of values
+   that differ are printed);
 4. the paths, each driven through ``decode_corpus(..., device="cuda")``
    with the launch counts set to 0 just before it and read just after,
    none routing a stream to the scalar decoder. On the committed 32 x 15 s
@@ -316,13 +322,16 @@ def _bound(in_bytes: int, out_bytes: int, ops: int) -> dict:
 
 
 def _compare(name, kernel_fn, plain_fn, inputs, ops, view_k=None,
-             view_p=None, library_fn=None, check=None, kernel=None):
+             view_p=None, library_fn=None, check=None, kernel=None,
+             in_bytes=None):
     """Run both on the same inputs; assert bit-equality of their outputs
     (or ``check(got, want)``, which returns a note); bound the work from
-    ``inputs``, the compared outputs and ``ops`` (a function of the
-    outputs). The result keeps the functions to time (``_time`` times
-    them once the CPU workers have stopped: host contention stretches the
-    launch gaps of these small kernels) and ``kernel``, the part of the
+    ``inputs`` (or ``in_bytes``, the input bytes this run's data makes
+    the kernel read, where it skips some), the compared outputs and
+    ``ops`` (a function of the outputs). The result keeps the functions
+    to time (``_time`` times them once the CPU workers have stopped: host
+    contention stretches the launch gaps of these small kernels) and
+    ``kernel``, the part of the
     CUDA kernel names (default ``name``) whose device time is the
     kernel's."""
     import torch
@@ -346,7 +355,8 @@ def _compare(name, kernel_fn, plain_fn, inputs, ops, view_k=None,
         note = check(got, want)
     res = {"max_abs_err": err, "name": name, "kernel": kernel or name,
            "fns": (kernel_fn, plain_fn, library_fn),
-           **_bound(_nbytes(inputs), _nbytes(got), ops(got))}
+           **_bound(_nbytes(inputs) if in_bytes is None else in_bytes,
+                    _nbytes(got), ops(got))}
     print(f"  {name}: {note} over {len(got)} outputs; bound "
           f"{res['bound_ms']:.4f} ms by {res['bound_by']} ({res['bytes']} B, "
           f"{res['ops']} ops)", flush=True)
@@ -657,18 +667,12 @@ def _check_k6_k7(q, wire, wbyte, ubits, rice, suffix):
         view_k=lambda sc: [wire[:n_k6], *_scan_parts(sc, C, nbt // C, rice)],
         view_p=lambda o: [o[0][:n_k6], *_scan_parts(o[1], C, nbt // C, rice)],
     )
-    scan_k = pp.dpack_pack(q, wire, ubits, cap, urow, rice)
     if rice:
-        ub = min(4 * int(scan_p[1]), 4 * ucap)
-        out["dpack_unary" + suffix] = _compare(
-            "dpack_unary" + tag,
-            lambda: pp.dpack_unary(q, wire, scan_k, cap, ucap, urow),
-            lambda: pp.dpack_unary_plain(q, wbyte, ucap, urow),
-            inputs=[q, wbyte, scan_k],
-            ops=lambda _: 8 * q.numel(), kernel="dpack_unary",
-            view_k=lambda _: [wire[n_k6 : n_k6 + ub]],
-            view_p=lambda u: [u[:ub]],
-        )
+        out["dpack_unary" + suffix] = _check_k7(
+            "dpack_unary" + tag, q, wire, wbyte, ubits, (cap, ucap, urow))
+        out["dpack_unary_soft" + suffix] = _check_k7(
+            "dpack_unary (soft caps)" + tag, q, wire, wbyte, ubits,
+            pp.wire_caps(nbt, False))
     wk = pp.dpack_wire(q, cap, ucap, urow, rice, select=(wbyte, ubits),
                        wire=wire)
     wp = pp.dpack_wire_plain(q, cap, ucap, urow, rice)
@@ -679,6 +683,69 @@ def _check_k6_k7(q, wire, wbyte, ubits, rice, suffix):
           f"({nb / (2 * C * L):.4f} of raw s16), payload at byte {hdr + nbt} "
           f"of the wire, equal to the twin", flush=True)
     return out
+
+
+def _check_k7(name, q, wire, wbyte, ubits, caps, bite=False):
+    """K7 under ``caps`` (cap_groups, cap_uwords, cap_urow) on the scan K6
+    makes of this rice wire under them, against ``dpack_unary_plain``: the
+    kept unary section, which starts at min(plane bytes, 16*cap_groups) of
+    the payload. ``bite``: the row cap and the section cap must both cut
+    this wire (K6's row-overflow flag set, more unary words than
+    cap_uwords)."""
+    from vorbispizza_tpu_torch.ops import pcm_pack as pp
+
+    C, L = q.shape
+    nbt = pp.wire_rows(L, C)
+    cap, ucap, urow = caps
+    scan = pp.dpack_pack(q, wire, ubits, cap, urow, True)
+    f = {k: int(v[0]) for k, v in pp.scan_fields(scan, C, nbt // C,
+                                                 True).items()
+         if k in ("groups", "uwords", "over")}
+    start = pp.wire_header_bytes(C) + nbt + min(16 * f["groups"], 16 * cap)
+    ub = min(4 * f["uwords"], 4 * ucap)
+    print(f"  {name}: caps {caps}, {f['uwords']} unary words, row overflow "
+          f"{bool(f['over'])}", flush=True)
+    if bite and not (f["over"] and f["uwords"] > ucap):
+        raise AssertionError(f"{name}: the caps {caps} do not both cut")
+    return _compare(
+        name,
+        lambda: pp.dpack_unary(q, wire, scan, cap, ucap, urow),
+        lambda: pp.dpack_unary_plain(q, wbyte, ucap, urow),
+        inputs=[q, wbyte, scan],
+        in_bytes=_k7_in_bytes(q, wbyte),
+        ops=lambda _: 8 * 128 * _k7_rows(wbyte), kernel="dpack_unary",
+        view_k=lambda _: [wire[start : start + ub]],
+        view_p=lambda u: [u[:ub]],
+    )
+
+
+def _k7_rows(wbyte) -> int:
+    """The block rows whose windows K7 differences: each rice row, and an
+    inter row's partner row again."""
+    rice = (wbyte >> 7) & 1
+    return int(rice.sum()) + int((rice & (wbyte >> 6)).sum())
+
+
+def _k7_in_bytes(q, wbyte) -> int:
+    """The bytes this wire makes K7 read: its widx table; once, the q of
+    each row that a rice row or an inter row's partner needs; one offset of
+    the scan for each warp (4 rows) that holds a rice row."""
+    import torch
+    import torch.nn.functional as F
+
+    from vorbispizza_tpu_torch.ops import pcm_pack as pp
+
+    C, L = q.shape
+    nbt = wbyte.shape[0]
+    nb = nbt // C
+    rice = ((wbyte >> 7) & 1).view(C, nb)
+    need = rice.clone()
+    for c, p in enumerate(pp.pair_partner(C)):
+        need[int(p)] |= rice[c] & (wbyte.view(C, nb)[c] >> 6)
+    samples = (L - pp.BLOCK * torch.arange(nb, device=q.device)).clamp(
+        max=pp.BLOCK)
+    warps = F.pad(rice, (0, -nb % 4)).view(C, -1, 4).amax(-1)
+    return nbt + 2 * int((need * samples).sum()) + 4 * int(warps.sum())
 
 
 def _check_dpack_synthetic(rice, dev):
@@ -704,7 +771,21 @@ def _check_dpack_synthetic(rice, dev):
     wire, wview = pp.wire_buffer(C, L, cap, ucap, rice, dev)
     wbyte, ubits = pp.dpack_select_plain(q, rice)
     wview.copy_(wbyte)
-    return _check_k6_k7(q, wire, wview, ubits, rice, "_odd")
+    out = _check_k6_k7(q, wire, wview, ubits, rice, "_odd")
+    if rice:
+        # K7 where the soft caps cut, on a wire of its own (phase 5 times
+        # the checks above again on theirs): no select's rice row reaches
+        # the soft row cap, so lowered rungs make rows past it and more
+        # words than the section cap
+        wire, wview = pp.wire_buffer(C, L, cap, ucap, rice, dev)
+        cut, ubits = pp.lowered_rungs(q, wbyte)
+        wview.copy_(cut)
+        out["dpack_unary_cut_odd"] = _check_k7(
+            "dpack_unary (soft caps, lowered rungs)_odd", q, wire, wview,
+            ubits, pp.wire_caps(nbt, False), bite=True)
+    return out
+
+
 def check_fallback_kernels(corpus, dev):
     """Phase 3, fallback wires: K2's posts mode, K9 and K4 on the first
     chunk prepared under the fallback config."""
@@ -787,10 +868,11 @@ def check_floor0_kernel(corpus, dev):
         lambda: [floor.floor0_curves(*a) for a in calls],
         lambda: [floor.floor0_curves_plain(*a) for a in calls],
         inputs=[t for a in calls for t in a[:4]],
-        ops=lambda o: sum(a[2].numel() * a[3].shape[1] * (4 * a[4] + 8)
-                          for a in calls),
+        in_bytes=sum(_k8_in_bytes(a) for a in calls),
+        ops=lambda o: sum(_k8_ops(a) for a in calls),
         check=_floor0_check,
     )}
+    out.update(_check_k8_synthetic(dev))
     suffix = K4_CHUNKS["floor0"]
     out["couple_spectrum" + suffix], spectra = _check_k3(
         "couple_spectrum" + suffix, synth, bks)
@@ -798,6 +880,63 @@ def check_floor0_kernel(corpus, dev):
     out.update(_check_k4(obks, bufs[4:9], sig[3], synth.channels, suffix))
     for rice in (False, True):
         out.update(_check_dpack(obks, bufs[4:9], sig[3], rice, dev, suffix))
+    return out
+
+
+def _k8_in_bytes(args) -> int:
+    """What a K8 call's data makes it read: used, the tables, and the
+    coefficients and amplitude of its used rows."""
+    coeffs, amp, used, tab = args[:4]
+    n = int(used.bool().sum())
+    return (used.numel() + _nbytes([tab])
+            + n * (coeffs.element_size() * args[4] + amp.element_size()))
+
+
+def _k8_ops(args) -> int:
+    """K8's float operations: about 4*order+8 a bin of its used rows."""
+    used, tab, order = args[2], args[3], args[4]
+    return int(used.bool().sum()) * tab.shape[1] * (4 * order + 8)
+
+
+def _check_k8_synthetic(dev):
+    """K8 beside the floor0 chunk's order 4 and half 128: orders 32 (a
+    whole chunk of 32 cosines in the warp's slab) and 31 (odd: the other
+    tails, and a last partial float4 of cosines) at
+    half 1024, the blocksize 2048 of real pre-1.0 floor0 files, on G =
+    16,384 rows made from a seed (LSP angles sorted in (0.1, pi - 0.1), a
+    tenth of the rows unused)."""
+    import math
+    import types
+
+    import torch
+
+    from vorbispizza_tpu_torch.ops import floor
+    from vorbispizza_tpu_torch.setup.floor import Floor0
+
+    G, n, bark_size, amp_bits, amp_off = 16384, 2048, 256, 6, 160
+    bark = Floor0._bark_map(types.SimpleNamespace(rate=44100,
+                                                  bark_map_size=bark_size), n)
+    out = {}
+    for order in (32, 31):
+        g = torch.Generator().manual_seed(order)
+        gaps = torch.rand((G, order + 1), generator=g, dtype=torch.float64)
+        gaps = 0.3 + 0.7 * gaps
+        lsp = (torch.cumsum(gaps, 1)[:, :-1] / gaps.sum(1, keepdim=True)
+               * (math.pi - 0.2) + 0.1).float()
+        amp = torch.randint(1, 1 << amp_bits, (G,), generator=g,
+                            dtype=torch.int32)
+        used = (torch.rand(G, generator=g) >= 0.1).to(torch.uint8)
+        tab = torch.from_numpy(floor.floor0_tables(bark, bark_size, order))
+        args = (lsp.to(dev), amp.to(dev), used.to(dev), tab.to(dev), order,
+                amp_bits, amp_off)
+        out[f"floor0_synth_o{order}"] = _compare(
+            f"floor0_synth (order {order}, half {n // 2}, synthetic)",
+            lambda a=args: [floor.floor0_curves(*a)],
+            lambda a=args: [floor.floor0_curves_plain(*a)],
+            inputs=list(args[:4]), in_bytes=_k8_in_bytes(args),
+            ops=lambda o, a=args: _k8_ops(a),
+            check=_floor0_check, kernel="floor0_synth",
+        )
     return out
 
 

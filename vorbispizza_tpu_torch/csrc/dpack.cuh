@@ -1,7 +1,8 @@
 // Shared pieces of the dpack s16 wire kernels: K4's dpack mode (the
 // select, ola_assemble.cu), K6 and K7 (dpack_pack.cu, dpack_unary.cu): the
-// width table, the per-sample candidate zigzag, rebuilt from q, and the
-// layout of K6's scan.
+// width table, the per-sample candidate zigzag, rebuilt from q, the layout
+// of K6's scan, the payload's store mode, and the runs of 4 samples a lane
+// and their windows' differences that K6 and K7 read q in.
 //
 // q is int16 [C, L] (already in the s16 range). A block row r covers
 // channel c = r / NB, samples 128*(r % NB) ... +127; samples past L are
@@ -94,4 +95,47 @@ __device__ __forceinline__ void vp_store_word(uint8_t* p, uint32_t v) {
   p[1] = (uint8_t)(v >> 8);
   p[2] = (uint8_t)(v >> 16);
   p[3] = (uint8_t)(v >> 24);
+}
+
+// How K6 and K7 store into the payload of a 16-byte aligned wire: it starts
+// at byte pay = HDR + NBt (the unary section a multiple of 16 bytes after
+// it), so 16-byte stores where pay is 16-aligned, words where it is
+// 4-aligned, bytes otherwise.
+enum { VP_STORE_16 = 0, VP_STORE_4 = 1, VP_STORE_1 = 2 };
+
+__host__ __device__ __forceinline__ int vp_store_mode(int64_t pay) {
+  return pay % 16 == 0 ? VP_STORE_16 : pay % 4 == 0 ? VP_STORE_4 : VP_STORE_1;
+}
+
+// sample k (0..3) of a run of 4 int16 held as two 32-bit words
+__device__ __forceinline__ int32_t run_sample(const uint2 r, int k) {
+  const uint32_t h = k < 2 ? r.x : r.y;
+  return (k & 1) ? (int32_t)h >> 16 : (int32_t)(int16_t)(h & 0xFFFFu);
+}
+
+// samples i0 .. i0+3 of one channel's q (0 at or past L), as two words
+__device__ __forceinline__ uint2 load_run(const int16_t* __restrict__ qc,
+                                          int i0, int L, bool vec) {
+  if (vec) {  // L % 4 == 0, so the run lies wholly before L or past it
+    return i0 < L ? *(const uint2*)(qc + i0) : make_uint2(0u, 0u);
+  }
+  uint32_t s[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    s[k] = i0 + k < L ? (uint32_t)(uint16_t)qc[i0 + k] : 0u;
+  }
+  return make_uint2(s[0] | s[1] << 16, s[2] | s[3] << 16);
+}
+
+// the candidate of a window x = q[i-3 .. i+3] at its 4 samples i .. i+3:
+// the second difference, or (third) the third, by successive differences
+__device__ __forceinline__ void window_diff(const int32_t x[7], bool third,
+                                            int32_t v[4]) {
+  int32_t d1[6], d2[5];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) d1[j] = x[j + 1] - x[j];  // at i-2 .. i+3
+#pragma unroll
+  for (int j = 0; j < 5; ++j) d2[j] = d1[j + 1] - d1[j];  // at i-1 .. i+3
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = third ? d2[k + 1] - d2[k] : d2[k + 1];
 }

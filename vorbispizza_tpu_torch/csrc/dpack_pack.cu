@@ -68,8 +68,6 @@
 #define VP_SCAN_TILES 2  // consecutive tiles a scan thread holds
 #define VP_SCAN_TSTEP (VP_SCAN_THREADS * VP_SCAN_TILES)
 
-enum { VP_STORE_16 = 0, VP_STORE_4 = 1, VP_STORE_1 = 2 };
-
 // per rung, ceil(2^20 / unit) of its staging unit (4w bits up to w = 8, else
 // w): n / unit = (n * inv) >> 20 exactly for n < 4096, the error staying
 // below 1 / unit
@@ -266,26 +264,6 @@ __global__ void __launch_bounds__(VP_SCAN_THREADS)
 
 // -- the pack ----------------------------------------------------------------
 
-// sample k (0..3) of a run of 4 int16 held as two 32-bit words
-__device__ __forceinline__ int32_t run_sample(const uint2 r, int k) {
-  const uint32_t h = k < 2 ? r.x : r.y;
-  return (k & 1) ? (int32_t)h >> 16 : (int32_t)(int16_t)(h & 0xFFFFu);
-}
-
-// samples i0 .. i0+3 of one channel's q (0 at or past L), as two words
-__device__ __forceinline__ uint2 load_run(const int16_t* __restrict__ qc,
-                                          int i0, int L, bool vec) {
-  if (vec) {  // L % 4 == 0, so the run lies wholly before L or past it
-    return i0 < L ? *(const uint2*)(qc + i0) : make_uint2(0u, 0u);
-  }
-  uint32_t s[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    s[k] = i0 + k < L ? (uint32_t)(uint16_t)qc[i0 + k] : 0u;
-  }
-  return make_uint2(s[0] | s[1] << 16, s[2] | s[3] << 16);
-}
-
 // a warp's VP_PACK_ROWS consecutive rows of one channel's q: each lane's run
 // of 4 samples a row, and the 3 samples before the warp's first row (lane 0
 // reads them; 0 before the channel's first sample)
@@ -323,19 +301,6 @@ __device__ __forceinline__ void row_window(const PackRuns& p, int r, int lane,
     const int32_t last = __shfl_sync(0xffffffffu, run_sample(prev, 1 + k), 31);
     x[k] = lane > 0 ? up : r > 0 ? last : p.halo[k];
   }
-}
-
-// the candidate of a window x = q[i-3 .. i+3] at its 4 samples i .. i+3:
-// the second difference, or (third) the third, by successive differences
-__device__ __forceinline__ void window_diff(const int32_t x[7], bool third,
-                                            int32_t v[4]) {
-  int32_t d1[6], d2[5];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) d1[j] = x[j + 1] - x[j];  // at i-2 .. i+3
-#pragma unroll
-  for (int j = 0; j < 5; ++j) d2[j] = d1[j + 1] - d1[j];  // at i-1 .. i+3
-#pragma unroll
-  for (int k = 0; k < 4; ++k) v[k] = third ? d2[k + 1] - d2[k] : d2[k + 1];
 }
 
 __global__ void __launch_bounds__(VP_PACK_WARPS * 32)
@@ -506,9 +471,7 @@ VP_API int vp_dpack_pack(const void* q, const void* partner, void* wire,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t pay = HDR + nbt;  // payload offset in the wire
-  const int store = pay % 16 == 0 ? VP_STORE_16
-                    : pay % 4 == 0 ? VP_STORE_4
-                                   : VP_STORE_1;
+  const int store = vp_store_mode(pay);
   const dim3 grid((unsigned)vp_tiles((int)NB), (unsigned)C);  // a tile a CTA
   dpack_pack_kernel<<<grid, VP_PACK_WARPS * 32, 0, s>>>(
       (const int16_t*)q, (const int32_t*)partner, w, sc,

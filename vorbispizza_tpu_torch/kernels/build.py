@@ -47,7 +47,7 @@ SIGNATURES = {
     "vp_residue_expand": [P] * 4 + [I] * 6 + [P],
     "vp_floor1_synth": [P] * 9 + [I] * 6 + [P],
     "vp_floor1_posts": [P] * 6 + [I] * 4 + [P],
-    "vp_floor0_synth": [P] * 6 + [I] * 3 + [D] * 2 + [P],
+    "vp_floor0_synth": [P] * 5 + [I] * 3 + [D] * 2 + [P],
     "vp_residue_gather": [P] * 3 + [I] * 4 + [P],
     "vp_couple_spectrum": [P] + [I] * 2 + [P],
     "vp_ola_assemble": [P] * 11 + [I] * 7 + [P],

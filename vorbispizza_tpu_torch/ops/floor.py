@@ -366,30 +366,48 @@ def floor0_curves_plain(coefficients, amplitude, used, tab, order: int,
     return torch.where(used.reshape(G, 1).bool(), linear, 0.0)
 
 
+def check_floor0_operands(tab, out) -> None:
+    """K8 reads ``tab`` as one contiguous float32 [3, half] tensor (cos_w,
+    then the tails of p and of q, ``half`` floats apart) and reads and
+    writes float4s: refuse any other ``tab``, a ``half`` that is not a
+    multiple of 4, and a ``tab`` or ``out`` off a 16-byte boundary."""
+    if (tab.dtype != torch.float32 or tab.dim() != 2 or tab.shape[0] != 3
+            or not tab.is_contiguous()):
+        raise ValueError(
+            "K8 takes tab as one contiguous float32 [3, half] tensor "
+            f"(floor0_tables), got {tab.dtype} {tuple(tab.shape)} "
+            f"with strides {tab.stride()}")
+    if tab.shape[1] % 4 or tab.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("K8 reads and writes float4s: half must be a "
+                         "multiple of 4 and tab and out 16-byte aligned")
+
+
 def floor0_curves(coefficients, amplitude, used, tab, order: int,
                   amplitude_bits: int, amplitude_offset: int):
-    """``floor0_curves_plain`` for CPU tensors; kernel K8 for CUDA ones."""
+    """``floor0_curves_plain`` for CPU tensors; kernel K8 for CUDA ones
+    (``check_floor0_operands`` says what it refuses)."""
     if used.device.type == "cpu":
         return floor0_curves_plain(coefficients, amplitude, used, tab, order,
                                    amplitude_bits, amplitude_offset)
     if not 1 <= order <= MAX_ORDER:
         raise ValueError(f"floor0 order {order} (K8 holds 1..{MAX_ORDER})")
     G = used.numel()
-    half = tab.shape[1]
+    half = tab.shape[-1]
+    out = torch.empty((G, half), dtype=torch.float32, device=used.device)
+    check_floor0_operands(tab, out)
     coefficients = coefficients.reshape(G, order)
     amplitude = amplitude.reshape(G)
     used = used.reshape(G)
     K.require_cuda(coefficients, amplitude, used, tab)
-    if (coefficients.dtype != torch.float32 or tab.dtype != torch.float32
-            or amplitude.dtype != torch.int32 or used.dtype != torch.uint8):
-        raise TypeError("expected f32 coefficients and tables, i32 amplitude "
-                        "and u8 used")
-    out = torch.empty((G, half), dtype=torch.float32, device=used.device)
+    if (coefficients.dtype != torch.float32 or amplitude.dtype != torch.int32
+            or used.dtype != torch.uint8):
+        raise TypeError("expected f32 coefficients, i32 amplitude and u8 "
+                        "used")
     if G:
         K.launch(
             "floor0_synth",
             coefficients.data_ptr(), amplitude.data_ptr(), used.data_ptr(),
-            tab[0].data_ptr(), tab[1].data_ptr(), out.data_ptr(),
+            tab.data_ptr(), out.data_ptr(),
             G, order, half,
             float(np.float32((1 << amplitude_bits) - 1)),
             float(np.float32(amplitude_offset)),

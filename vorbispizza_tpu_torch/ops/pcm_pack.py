@@ -410,13 +410,34 @@ def dpack_pack_plain(q, wbyte, scan, cap_groups: int, rice: bool):
     return torch.cat([_le_bytes(head), wbyte, planes])
 
 
-def dpack_unary_plain(q, wbyte, cap_uwords: int, cap_urow: int):
-    """Twin of K7: the compacted unary section, u8 [4*cap_uwords]."""
+def unary_lengths_plain(q, wbyte) -> torch.Tensor:
+    """The unary lengths K7 rebuilds from q and the widx|flags bytes, int64
+    [NBt, BLOCK]: (z >> k) + 1 of the winner's zigzag z on rice blocks
+    (k the rung's width), 0 on width blocks. Their row sums are the select's
+    unary bits for any widx|flags bytes, chosen by the select or not."""
     z = _winner(q, wbyte)
     w = _table(WIDTHS, q.device)[(wbyte & 0x1F).long()]
     is_rice = (wbyte >> 7).bool()
-    ulen = torch.where(is_rice[:, None], (z >> w[:, None]) + 1, 0)
-    return pack_unary_plain(ulen, q.shape[0], cap_uwords, cap_urow)[0]
+    return torch.where(is_rice[:, None], (z >> w[:, None]) + 1, 0)
+
+
+def lowered_rungs(q, wbyte):
+    """``wbyte`` with a third of its rice rows one rung lower and another
+    third two lower (as far as rung 0), and the unary bits of the result,
+    int32 [NBt]: rows past the soft row cap, which no select makes (a row
+    picks rice only while it undercuts its width coding)."""
+    wb = wbyte.long()
+    rung = wb & 31
+    idx = torch.arange(wb.shape[0], device=wb.device)
+    drop = torch.where((wb >> 7).bool(), (idx % 3 + 1) % 3, 0)
+    cut = ((wb & ~31) | (rung - torch.minimum(drop, rung))).to(torch.uint8)
+    return cut, unary_lengths_plain(q, cut).sum(dim=1).to(torch.int32)
+
+
+def dpack_unary_plain(q, wbyte, cap_uwords: int, cap_urow: int):
+    """Twin of K7: the compacted unary section, u8 [4*cap_uwords]."""
+    return pack_unary_plain(unary_lengths_plain(q, wbyte), q.shape[0],
+                            cap_uwords, cap_urow)[0]
 
 
 def dpack_wire_plain(q: torch.Tensor, cap_groups: int, cap_uwords: int,
@@ -524,6 +545,8 @@ def dpack_unary(q: torch.Tensor, wire: torch.Tensor, scan: torch.Tensor,
     NB = -(-L // BLOCK)
     if scan.dtype != torch.int32 or scan.numel() != scan_size(C, NB, True):
         raise ValueError("scan is not K6's scan of a rice wire of this q")
+    if wire.data_ptr() % 16:
+        raise ValueError("K7 takes a 16-byte aligned wire (wire_buffer)")
     if C * NB:
         K.launch("dpack_unary", q.data_ptr(),
                  partner_table(C, q.device).data_ptr(), wire.data_ptr(),
