@@ -53,7 +53,21 @@ nothing of the JAX package: the float64 anchor is the port's own
    anchor (max-abs printed), "s16" equal to the host quantization of the
    card's f32 with at most 1e-3 of each stream's samples over 2 LSB from
    the quantized anchor, and "f32" under residue_transport="values" (K9)
-   bit-equal to the symbol wire's;
+   bit-equal to the symbol wire's. decode_corpus is the overlapped
+   driver (a dispatch thread, a collector pool, pinned non-blocking H2D
+   on a dispatch stream, a completion event a chunk), and on corpus32
+   phase 4 also holds: (a) ``devices=["cuda:0", "cuda:0"]`` bit-equal to
+   the one-device s16; (b) ``batched=False`` s16 (a program a stream, 32
+   chunks) within 1 LSB of the quantized anchor; (c)
+   ``decode_file_batch`` on 3 streams, unsplit and with
+   ``max_frames=64``, within 1e-6 of the anchor (the split-unsplit
+   distance printed); (d) ``VorbisReader(accelerated=True,
+   device="cuda")`` read in pieces and after 3 seeks within 1e-6 of the
+   scalar reader, with its stats bits equal; (e) the decode CLI
+   (``python -m vorbispizza_tpu_torch.tools.decode --s16``) on one
+   stream, its WAV within 1 LSB of the quantized anchor; (f)
+   ``output="device"`` tensors, read after the call returns with no
+   synchronize, equal to the f32 output;
 5. once the CPU workers of phases 3-4 have stopped: each kernel's time,
    its twin's and, where one PyTorch call computes the same function,
    that call's (CUDA events around 20 calls after a warm one, at phase
@@ -67,7 +81,11 @@ nothing of the JAX package: the float64 anchor is the port's own
    the floor0 f32: realtime factor, stage walls and device->host bytes;
    and one more s16 run under torch.profiler: the device's busy and idle
    share of its window, its top device ops by time, and the device ops
-   that ran between each chunk's K4 (dpack mode) and K6.
+   that ran between each chunk's K4 (dpack mode) and K6. Then one s16 run
+   with a DecodeTimer: its per-chunk timeline and, for each chunk k >= 1,
+   whether chunk k's merge began before chunk k-1's pull was done (the
+   overlap); and ``decode_file_batch`` on one corpus32 stream, the median
+   of 5 timed calls after a warm one (single-file latency).
 
 Any failure raises (exit code 1). Without CUDA, or without the package
 beside it, it exits 2 and prints no result. The last two lines are the
@@ -155,6 +173,8 @@ RUN_KERNELS = {
     "floor0_s16": ("residue_expand", "floor0_synth") + _S16_PATH,
     "floor0_values": ("residue_gather", "floor0_synth", "couple_spectrum",
                       "ola_assemble"),
+    "devices": ("residue_expand", "floor1_synth") + _S16_PATH,
+    "unbatched": ("residue_expand", "floor1_synth") + _S16_PATH,
 }
 
 
@@ -165,6 +185,22 @@ def _anchor(data: bytes):
     r = VorbisReader(data)
     r.initialize()
     return r.read_all(planar=True)
+
+
+#: the StreamStats bits an accelerated reader must share with the scalar one
+STATS_BITS = ("audio_bits", "waste_bits", "container_bits", "header_bits",
+              "packet_count")
+
+
+def _scalar_stats(data: bytes) -> dict:
+    """The scalar reader's StreamStats bits after reading the whole stream
+    (runs in a worker process)."""
+    from vorbispizza_tpu_torch.reader import VorbisReader
+
+    r = VorbisReader(data)
+    r.initialize()
+    r.read_all()
+    return {k: getattr(r.stats, k) for k in STATS_BITS}
 
 
 @contextlib.contextmanager
@@ -940,6 +976,188 @@ def _check_k8_synthetic(dev):
     return out
 
 
+def _read_pieces(reader, np, n: int = 3001):
+    """A reader's remaining samples, read ``n`` at a time -> [C, N]."""
+    parts = []
+    while True:
+        c = reader.read_samples(n)
+        if not c.shape[0]:
+            return np.concatenate(parts, axis=0).T
+        parts.append(c)
+
+
+def check_entry_points(run, same, corpus, anchors, f32, s16, scalar_stats,
+                       np, card):
+    """Phase 4, checks (a)-(f) on corpus32: the driver's ``devices=`` and
+    ``batched=``, the stream drivers, the accelerated reader, the CLI and
+    the ``output="device"`` tier."""
+    import struct
+    import tempfile
+
+    from vorbispizza_tpu_torch import (
+        VorbisReader,
+        decode_corpus,
+        decode_file_batch,
+    )
+    from vorbispizza_tpu_torch.decoder import CLIP_MAX
+
+    def lsb_off(got, ref):
+        ref_q = np.clip(np.rint(ref * 32768.0), -32768, 32767)
+        return int(np.abs(got.astype(np.int64) - ref_q).max())
+
+    print("phase 4 (a): output='s16', devices=['cuda:0', 'cuda:0']",
+          flush=True)
+    same("devices", run("devices", "s16",
+                        opts={"devices": ["cuda:0", "cuda:0"]}),
+         s16, "the one-device int16")
+
+    print("phase 4 (b): output='s16', batched=False", flush=True)
+    unb = run("unbatched", "s16", opts={"device": "cuda", "batched": False})
+    if unb.stats["chunks"] != len(corpus):
+        raise AssertionError(f"batched=False ran {unb.stats['chunks']} "
+                             f"chunks for {len(corpus)} streams")
+    lsb = max(lsb_off(got, ref) for got, ref in zip(unb, anchors))
+    print(f"  {unb.stats['chunks']} chunks; max |s16 - quantized anchor| = "
+          f"{lsb} LSB (limit {S16_TOL}); d2h {unb.stats['d2h_bytes']} B",
+          flush=True)
+    if lsb > S16_TOL:
+        raise AssertionError(f"batched=False s16 off the anchor by {lsb} LSB")
+
+    print("phase 4 (c): decode_file_batch(stream, device='cuda'), unsplit "
+          "and max_frames=64, on 3 streams", flush=True)
+    err, gap = 0.0, 0.0
+    for i, (data, ref) in enumerate(zip(corpus[:3], anchors)):
+        whole = decode_file_batch(data, device="cuda")
+        split = decode_file_batch(data, device="cuda", max_frames=64)
+        for pcm in (whole, split):
+            if pcm.shape != ref.shape or not np.isfinite(pcm).all():
+                raise AssertionError(f"stream {i}: shape {pcm.shape} vs "
+                                     f"{ref.shape} or non-finite PCM")
+            err = max(err, float(np.abs(pcm.astype(np.float64) - ref).max()))
+        gap = max(gap, float(np.abs(split - whole).max()))
+    print(f"  max abs vs float64 anchor {err:.3e} (limit {ANCHOR_TOL:g}); "
+          f"split vs unsplit max abs {gap:.3e}", flush=True)
+    if err > ANCHOR_TOL:
+        raise AssertionError(f"decode_file_batch off the anchor by {err}")
+
+    print("phase 4 (d): VorbisReader(accelerated=True, device='cuda'), read "
+          "in pieces of 3001 and after 3 seeks", flush=True)
+    acc = VorbisReader(corpus[0], accelerated=True, device="cuda")
+    acc.initialize()
+    got = _read_pieces(acc, np)
+    if got.shape != anchors[0].shape:
+        raise AssertionError(f"accelerated reader: {got.shape} samples vs "
+                             f"{anchors[0].shape}")
+    err = float(np.abs(got.astype(np.float64) - anchors[0]).max())
+    bits = {k: getattr(acc.stats, k) for k in STATS_BITS}
+    if bits != scalar_stats:
+        raise AssertionError(f"accelerated stats {bits} != scalar "
+                             f"{scalar_stats}")
+    scalar = VorbisReader(corpus[0])
+    scalar.initialize()
+    for pos in (5000, 0, scalar.total_samples // 2):
+        acc.seek_to(pos)
+        scalar.seek_to(pos)
+        a = acc.read_samples(1024, planar=True)
+        b = scalar.read_samples(1024, planar=True)
+        if a.shape != b.shape or acc.sample_position != scalar.sample_position:
+            raise AssertionError(f"seek to {pos}: {a.shape} at "
+                                 f"{acc.sample_position} vs {b.shape} at "
+                                 f"{scalar.sample_position}")
+        err = max(err, float(np.abs(a.astype(np.float64) - b).max()))
+    print(f"  max abs vs the scalar reader {err:.3e} (limit {ANCHOR_TOL:g}); "
+          f"stats bits equal: {bits}", flush=True)
+    if err > ANCHOR_TOL:
+        raise AssertionError(f"accelerated reader off by {err}")
+
+    print("phase 4 (e): python -m vorbispizza_tpu_torch.tools.decode --s16 "
+          "on one stream", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "s00.ogg")
+        with open(src, "wb") as f:
+            f.write(corpus[0])
+        proc = subprocess.run(
+            [sys.executable, "-m", "vorbispizza_tpu_torch.tools.decode",
+             "--s16", "--out", tmp, src],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"the CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        with open(os.path.join(tmp, "s00.wav"), "rb") as f:
+            wav = f.read()
+    C, N = anchors[0].shape
+    tag, channels, _rate, _brate, _align, width = struct.unpack(
+        "<HHIIHH", wav[20:36])
+    if (wav[:4], wav[8:16], tag, channels, width, len(wav)) != (
+            b"RIFF", b"WAVEfmt ", 1, C, 16, 44 + 2 * C * N):
+        raise AssertionError(f"the CLI's WAV header: {wav[:44]!r}")
+    lsb = lsb_off(np.frombuffer(wav[44:], "<i2").reshape(N, C).T, anchors[0])
+    print(f"  {proc.stdout.strip()} [{card}]; max |WAV - quantized anchor| "
+          f"= {lsb} LSB (limit {S16_TOL})", flush=True)
+    if lsb > S16_TOL:
+        raise AssertionError(f"the CLI's WAV off the anchor by {lsb} LSB")
+
+    print("phase 4 (f): output='device', read after the call returns with "
+          "no synchronize", flush=True)
+    outs = decode_corpus(corpus, device="cuda", output="device")
+    clip = float(CLIP_MAX)
+    host = [o.clamp(-clip, clip).cpu().numpy() for o in outs]
+    if not all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(host, f32)):
+        raise AssertionError("output='device' differs from the f32 output")
+    print(f"  {len(outs)} tensors on {outs[0].device}, identical to the f32 "
+          f"output (clipped)", flush=True)
+
+
+def time_entry_points(corpus, card):
+    """Phase 5: one s16 run's DecodeTimer timeline and its overlap, and
+    decode_file_batch's single-file latency."""
+    import numpy as np
+
+    from vorbispizza_tpu_torch import (
+        DecodeTimer,
+        decode_corpus,
+        decode_file_batch,
+    )
+    from vorbispizza_tpu_torch.testing.corpus32 import RECIPE
+
+    print("phase 5: one s16 run with a DecodeTimer (per-chunk marks, "
+          "seconds from the first)", flush=True)
+    timer = DecodeTimer()
+    chunks = decode_corpus(corpus, device="cuda", output="s16",
+                           timer=timer).stats["chunks"]
+    names = [n for n, _ in timer.events]
+    at = dict(timer.events)
+    marks = ("merge0", "dispatch0", "dispatched", "pull_wait", "pull0",
+             "pull_done")
+    for k in range(chunks):
+        print(f"  c{k}: " + ", ".join(f"{m} {at[f'c{k}.{m}']:.4f}"
+                                      for m in marks))
+    overlap = [names.index(f"c{k}.merge0") < names.index(f"c{k - 1}.pull_done")
+               for k in range(1, chunks)]
+    print(f"  overlap: chunk k's merge began before chunk k-1's pull was "
+          f"done for {sum(overlap)} of {len(overlap)} chunks: {overlap} "
+          f"[{card}]", flush=True)
+    print("  timer " + json.dumps({"stages": timer.stages,
+                                   "counters": timer.counters,
+                                   "overlap": overlap}), flush=True)
+
+    print("phase 5: decode_file_batch(one corpus32 stream, device='cuda'): "
+          "one warm call, five timed", flush=True)
+    pcm = decode_file_batch(corpus[0], device="cuda")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode_file_batch(corpus[0], device="cuda")
+        walls.append(time.perf_counter() - t0)
+    med = float(np.median(walls))
+    seconds = pcm.shape[1] / RECIPE["rate"]
+    print(f"  single-file latency: median {med:.4f} s over 5 calls "
+          f"({', '.join(f'{w:.4f}' for w in walls)}), {seconds:.2f} s of "
+          f"audio, {seconds / med:.1f}x realtime [{card}]", flush=True)
+
+
 def _quantize(pcm, np):
     return np.clip(np.rint(pcm * np.float32(32768.0)), -32768,
                    32767).astype(np.int16)
@@ -976,6 +1194,7 @@ def main() -> int:
     try:
         f0_futs = floor0_32.submit(pool)
         anchor_futs = [pool.submit(_anchor, d) for d in corpus]
+        stats_fut = pool.submit(_scalar_stats, corpus[0])
 
         # -- phase 1: card, versions, host front end
         smi = subprocess.run(
@@ -1027,10 +1246,11 @@ def main() -> int:
 
         runs = {}
 
-        def run(name, output, sources=corpus, **settings):
+        def run(name, output, sources=corpus, opts=None, **settings):
+            opts = opts or {"device": "cuda"}
             with configured(**settings):
                 kernels.reset_counts()
-                outs = decode_corpus(sources, device="cuda", output=output)
+                outs = decode_corpus(sources, output=output, **opts)
                 runs[name] = dict(kernels.COUNTS)
             stats = outs.stats
             print(f"  [{name}] launches {runs[name]}; stats "
@@ -1137,6 +1357,8 @@ def main() -> int:
              run("floor0_values", "f32", f0_corpus,
                  residue_transport="values"),
              f0_f32, "the symbol wire's f32")
+        check_entry_points(run, same, corpus, anchors, f32, s16,
+                           stats_fut.result(), np, card)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -1171,6 +1393,7 @@ def main() -> int:
                 prof = _profile_run(lambda: decode_corpus(
                     sources, device="cuda", output=output))
                 _print_profile(name, prof, card)
+    time_entry_points(corpus, card)
 
     keys = ("max_abs_err", "ms", "device_ms", "device_all_ms",
             "device_launches", "plain_ms", "bound_ms", "bound_by",

@@ -183,10 +183,13 @@ def test_cuda_device_raises_without_cuda():
 
 
 def test_device_is_required():
+    """resolve_device takes no default; decode_corpus defaults to "cuda",
+    which raises where CUDA is absent (it never falls back to the CPU)."""
     with pytest.raises(ValueError):
         resolve_device(None)
-    with pytest.raises(TypeError):
-        torch_corpus.decode_corpus([])  # no device= given
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            torch_corpus.decode_corpus([])  # no device= given: "cuda"
     assert resolve_device("cpu") == torch.device("cpu")
 
 

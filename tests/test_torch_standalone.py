@@ -4,8 +4,9 @@ parsing, the frame planner, the C++ front end, the float64 anchor, the
 test-stream generators) give bit-identical results to the JAX package's.
 
 The copies are the same code (bar the front end's build directory, the
-reader's missing batch-accelerated option and a pure-Python Ogg pager in
-place of libogg's), so every comparison here is exact."""
+reader's and the accelerated decoder's ``device`` argument and a
+pure-Python Ogg pager in place of libogg's), so every comparison here is
+exact."""
 
 import os
 import pathlib

@@ -1,9 +1,10 @@
 """Device resolution for the PyTorch port.
 
-Every entry point takes an explicit device; nothing defaults to one. A
-CUDA request on a machine without CUDA raises instead of falling back to
-the CPU, and resolving a CUDA device pins full-float32 matrix products
-(the DCT-IV product of ops/imdct.py needs them: TF32 keeps ~3 decimal
+Every entry point takes a ``device`` and defaults it to "cuda"; this
+function itself takes no default (None raises). A CUDA request on a
+machine without CUDA raises instead of falling back to the CPU, and
+resolving a CUDA device pins full-float32 matrix products (the DCT-IV
+product of ops/imdct.py needs them: TF32 keeps ~3 decimal
 digits, far outside the 1e-6 PCM budget against the float64 anchor).
 """
 

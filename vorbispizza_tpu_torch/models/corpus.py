@@ -1,14 +1,25 @@
-"""Corpus decode: many Ogg Vorbis streams through one device.
+"""Corpus decode: many Ogg Vorbis streams through one or more devices,
+with the host's stages and the device's work overlapped.
 
-Port of vorbispizza_tpu/models/corpus.py ``decode_corpus``. Per-stream
-host front ends (Ogg demux + C++ entropy decode, which releases the GIL)
-run on a thread pool. The main thread consumes them in input order, groups
-streams by channel count into chunks of at least ``max_batch_bytes`` of
-dense spectrum (exactly as the reference chunks, so the merged chunks and
-their sigs match), merges each chunk into one plan (``merge_streams``),
-packs it (``BatchSynthesizer.prepare_host``), copies the four typed
-buffers and five event arrays to the device, runs the synthesis on the
-current CUDA stream, and copies the output back once.
+Port of vorbispizza_tpu/models/corpus.py ``decode_corpus``, on its
+structure:
+
+- Per-stream host front ends (Ogg demux + C++ entropy decode, which
+  releases the GIL) run on a thread pool. The main thread consumes them
+  in input order and groups streams by channel count into chunks of at
+  least ``max_batch_bytes`` of dense spectrum, exactly as the reference
+  chunks, so the chunks and their sigs match it.
+- ONE dispatch thread takes the chunks in submission order. For each it
+  merges the streams (``merge_streams``), packs the wire
+  (``BatchSynthesizer.prepare_host``), stages the nine host arrays in
+  pinned memory, sends them with non-blocking copies and launches the
+  synthesis, all on the device's dispatch stream, and records the
+  chunk's completion event. Chunks go round-robin over ``devices``.
+- A pool of three collectors waits on each chunk's own event, pulls its
+  output (one pull at a time, under a lock, on the device's pull stream)
+  and unpacks it, while the dispatch thread packs the next chunk and the
+  main thread takes more front ends. The main thread never synchronizes
+  the device.
 
 ``output="s16"`` follows ``VorbisConfig.s16_wire`` as the reference does,
 with one difference: "dpack" runs the FULL-capacity wire ("s16df", at most
@@ -19,17 +30,20 @@ that fails its checks raises. The pull copies the header and width table
 into pinned memory, reads nbytes, checks the sections, and makes ONE
 exact-size copy of ``payload[:nbytes]`` into pinned memory (the
 reference's tunnel paging, ops/pcm_pack.py start_page0/pull_wire, is not
-needed on PCIe); the host unpacks it (ops.pcm_pack.unpack_pcm).
-``s16_rice="auto"`` resolves from the measured link rate (utils/link.py).
+needed on PCIe); the host unpacks it (ops.pcm_pack.unpack_pcm, C++
+through ctypes, which releases the GIL). ``s16_rice="auto"`` resolves
+from the measured link rate (utils/link.py).
 
 Streams the batch planner rejects (BatchUnsupported) decode through the
 float64 scalar anchor, as in the reference; ``stats["scalar"]`` counts
-them. Copy/compute overlap across chunks is not here yet.
+them.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
+import dataclasses
 import io
 import threading
 import time
@@ -57,14 +71,18 @@ from ..ogg.container import OggContainer
 from ..ops import pcm_pack
 from ..reader import VorbisReader
 from ..setup.header import parse_comments, parse_ident, parse_setup_cached
-from .pipeline import BatchSynthesizer
+from .pipeline import BatchSynthesizer, upload
 
 _SYNTH_CACHE: dict = {}
 _SYNTH_LOCK = threading.Lock()
 _SYNTH_CACHE_MAX = 32
 
-#: wall-clock stages of decode_corpus, in pipeline order
-STAGES = ("front_end", "prepare", "h2d", "device", "d2h", "unpack")
+#: host wall-clock stages of decode_corpus (stats["stage_s"]), in
+#: pipeline order: the main thread's wait on front ends; the dispatch
+#: thread's merge, prepare_host, pinned staging + H2D enqueue and forward
+#: launch; the collectors' wait on a chunk's event, pull and unpack
+STAGES = ("front_end", "merge", "prepare", "h2d", "dispatch", "device",
+          "d2h", "unpack")
 
 #: config.s16_wire -> the fused body's output for output="s16"
 S16_FORMATS = {"dpack": "s16df", "planes": "s16p", "raw": "s16"}
@@ -267,9 +285,12 @@ def _scalar_fallback(source, output: str, clip_samples: bool, device):
 class CorpusOutputs(list):
     """decode_corpus's per-source outputs, in input order, plus ``stats``:
     stream counts (streams, batched, scalar, failed), ``chunks``,
-    ``d2h_bytes`` (bytes copied device -> host), and ``stage_s``: host wall
-    seconds per stage of STAGES (device and copy stages end in a
-    synchronize, so they include the device's time)."""
+    ``h2d_bytes`` and ``d2h_bytes`` (the wire bytes sent to the devices
+    and copied back), and ``stage_s``: host wall seconds per stage of
+    STAGES. The stages run on three kinds of thread at once, so their
+    walls overlap and need not sum to the call's wall; "device" is only
+    the collectors' wait on chunk events, the device time no host work
+    hid."""
 
     stats: dict
 
@@ -297,31 +318,124 @@ def pull_dpack(wire: torch.Tensor, channels: int, out_len: int):
     return payload, widx, ch_ubit, head + nb
 
 
+_STREAMS: dict = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def _streams(dev: torch.device):
+    """(dispatch stream, pull stream) of a CUDA device, made once per
+    process; (None, None) for the CPU. Every chunk's tensors, and the
+    tables the shared synthesizers cache, are made on the one dispatch
+    stream of their device, so the caching allocator never gives a freed
+    block to one stream while another still reads it."""
+    if dev.type != "cuda":
+        return None, None
+    with _STREAMS_LOCK:
+        pair = _STREAMS.get(dev)
+        if pair is None:
+            pair = _STREAMS[dev] = (torch.cuda.Stream(dev),
+                                    torch.cuda.Stream(dev))
+        return pair
+
+
+@contextlib.contextmanager
+def _on(dev: torch.device, stream):
+    """Make ``dev`` and ``stream`` current for this thread (both are
+    thread-local in PyTorch, and every kernel launches on the current
+    stream); nothing for the CPU."""
+    if stream is None:
+        yield
+        return
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        yield
+
+
+class _NullTimer:
+    @contextlib.contextmanager
+    def stage(self, name):
+        yield
+
+    def count(self, name, value):
+        pass
+
+    def mark(self, name):
+        pass
+
+
+class _MarkAdapter:
+    """A timer without ``mark`` (older DecodeTimer-shaped objects), wrapped
+    rather than mutated: a slotted or frozen timer type would reject the
+    attribute anyway."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def mark(self, name):
+        pass
+
+
+@dataclasses.dataclass(slots=True)
+class _Chunk:
+    """A dispatched chunk, handed from the dispatch thread to a collector
+    and to the main thread: its streams and their PCM lengths, its device
+    and pull stream, its sig, kept samples, device output, completion
+    event (None on the CPU) and pinned staging copies."""
+
+    cid: int
+    idx: list
+    lengths: list
+    dev: torch.device
+    pull: object
+    channels: int
+    sig: tuple
+    total: int
+    out: object
+    event: object
+    staged: object
+
+
 def decode_corpus(
     sources,
     *,
-    device,
+    device="cuda",
     output: str = "f32",
     clip_samples: bool = True,
+    batched: bool = True,
     max_batch_bytes: int | None = None,
     n_workers: int | None = None,
+    devices=None,
+    timer=None,
     on_error: str = "raise",
 ) -> CorpusOutputs:
     """Decode many Ogg Vorbis sources (paths or bytes) -> planar PCM
     [C, samples] per source, in input order.
 
-    ``device``: required ("cpu", "cuda", "cuda:N"); a CUDA request where
-    CUDA is absent raises. ``output``: "f32" (numpy float32 on the host,
-    clipped per ``clip_samples``), "s16" (numpy int16 on the host,
-    quantized on the device and shipped over config.s16_wire: "dpack",
-    "planes" or "raw") or "device" (float32 tensors left on the device,
-    unclipped, as the reference leaves them). ``on_error``: "raise"
-    propagates a malformed source's error; "none" leaves its slot None."""
+    ``device``: "cuda" (the default), "cuda:N" or "cpu" (every stage's
+    plain twin); a CUDA request where CUDA is absent raises. ``devices``:
+    a list of such specs to round-robin the chunks over (each chunk runs
+    whole on one device); it replaces ``device``. ``output``: "f32"
+    (numpy float32 on the host, clipped per ``clip_samples``), "s16"
+    (numpy int16 on the host, quantized on the device and shipped over
+    config.s16_wire: "dpack", "planes" or "raw") or "device" (float32
+    tensors left on the device, unclipped, as the reference leaves them;
+    the caller's current stream of each device waits for them before the
+    call returns). ``batched``: merge streams into chunks of at least
+    ``max_batch_bytes`` of dense spectrum; False runs one program per
+    stream through the same prepare, forward and pull. ``timer``: a
+    utils.profiling.DecodeTimer (stages front_end, merge, prepare,
+    dispatch, collect, collect_pull, collect_unpack; counters h2d_bytes
+    and d2h_bytes; per-chunk marks c<k>.merge0, .dispatch0, .dispatched,
+    .pull_wait, .pull0, .pull_done). ``on_error``: "raise" propagates a
+    malformed source's error; "none" leaves its slot None. An error of a
+    dispatch or a collector propagates, after both pools have stopped."""
     if output not in ("f32", "s16", "device"):
         raise ValueError(f"output {output!r}: not 'f32', 's16' or 'device'")
     if on_error not in ("raise", "none"):
         raise ValueError(f"on_error must be 'raise' or 'none', got {on_error!r}")
-    dev = resolve_device(device)
+    devs = [resolve_device(d) for d in (devices or [device])]
     cfg = VorbisConfig.default
     if n_workers is None:
         n_workers = cfg.corpus_workers
@@ -333,17 +447,31 @@ def decode_corpus(
             raise ValueError(f"s16_wire {cfg.s16_wire!r} (not one of "
                              f"{list(S16_FORMATS)})")
         fmt = S16_FORMATS[cfg.s16_wire]
+    t = timer if timer is not None else _NullTimer()
+    if not hasattr(t, "mark"):
+        t = _MarkAdapter(t)
 
     outs = CorpusOutputs([None] * len(sources))
     stats = {"streams": len(sources), "batched": 0, "scalar": 0, "failed": 0,
-             "chunks": 0, "d2h_bytes": 0,
+             "chunks": 0, "h2d_bytes": 0, "d2h_bytes": 0,
              "stage_s": dict.fromkeys(STAGES, 0.0)}
     outs.stats = stats
-    walls = stats["stage_s"]
+    lock = threading.Lock()  # stats: the three kinds of thread update it
+    pull_lock = threading.Lock()  # one pull at a time: the link is one pipe
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    def add(key, value):
+        with lock:
+            stats[key] += value
+
+    @contextlib.contextmanager
+    def wall(stage):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with lock:
+                stats["stage_s"][stage] += dt
 
     _FAILED = object()  # per-file failure sentinel (on_error="none")
 
@@ -358,103 +486,178 @@ def decode_corpus(
             return _FAILED
 
     def scalar(i):
-        stats["scalar"] += 1
+        # "device" output: the host PCM goes to the device on the main
+        # thread at the end, on the caller's stream
+        add("scalar", 1)
         try:
-            outs[i] = _scalar_fallback(sources[i], output, clip_samples, dev)
+            outs[i] = _scalar_fallback(sources[i],
+                                       "f32" if output == "device" else output,
+                                       clip_samples, None)
         except VorbisError:
             if on_error == "raise":
                 raise
-            stats["failed"] += 1
+            add("failed", 1)
 
-    def dispatch(chunk, fronts_by_idx):
-        t0 = time.perf_counter()
-        setup, channels = fronts_by_idx[chunk[0]][:2]
+    lanes = {d: _streams(d) for d in devs}
+    n_dispatched = 0  # the dispatch thread's alone
+
+    def dispatch(idx, fronts):
+        """Merge, pack, send and launch one chunk (the dispatch thread)."""
+        nonlocal n_dispatched
+        cid = n_dispatched
+        n_dispatched += 1  # a chunk that goes scalar keeps its cid too
+        t.mark(f"c{cid}.merge0")
+        setup, channels = fronts[idx[0]][:2]
         synth = _synthesizer_for(setup, channels)
-        for i in chunk[1:]:  # cross-setup chunk: register every setup
-            synth.add_setup(fronts_by_idx[i][0])
-        plan_m, buckets_m, pcm_lengths = merge_streams(
-            [fronts_by_idx[i][2:4] for i in chunk]
-        )
-        for i in chunk:
-            del fronts_by_idx[i]
-        if plan_m.n_frames == 0:
+        for i in idx[1:]:  # cross-setup chunk: register every setup
+            synth.add_setup(fronts[i][0])
+        if batched:
+            with t.stage("merge"), wall("merge"):
+                plan, buckets, lengths = merge_streams(
+                    [fronts[i][2:4] for i in idx])
+        else:
+            plan, buckets = fronts[idx[0]][2:4]
+            lengths = [plan.pcm_length]
+        for i in idx:
+            # the merged copies exist now: corpus memory stays bounded by
+            # the chunk size
+            del fronts[i]
+        if plan.n_frames == 0:
             # no decodable audio frame in the chunk: the scalar anchor is
             # authoritative for degenerate streams
-            for i in chunk:
+            for i in idx:
                 scalar(i)
-            return
+            return None
+        dev = devs[cid % len(devs)]
+        stream, pull = lanes[dev]
         try:
-            sig, host, total = synth.prepare_host(plan_m, buckets_m, fmt,
-                                                  device=dev)
-            t1 = time.perf_counter()
-            walls["prepare"] += t1 - t0
-            bufs = [torch.from_numpy(a).to(dev) for a in host]
-            sync()
-            t2 = time.perf_counter()
-            walls["h2d"] += t2 - t1
-            out = synth(sig, bufs)
-            sync()
-            t3 = time.perf_counter()
-            walls["device"] += t3 - t2
+            with _on(dev, stream):
+                with t.stage("prepare"):
+                    with wall("prepare"):
+                        sig, host, total = synth.prepare_host(
+                            plan, buckets, fmt, device=dev)
+                    with wall("h2d"):
+                        bufs, staged = upload(host, dev)
+                h2d = sum(a.nbytes for a in host)
+                t.count("h2d_bytes", h2d)
+                t.mark(f"c{cid}.dispatch0")
+                with t.stage("dispatch"), wall("dispatch"):
+                    out = synth(sig, bufs)
+                    event = None
+                    if stream is not None:
+                        event = torch.cuda.Event(blocking=True)
+                        event.record(stream)
+                t.mark(f"c{cid}.dispatched")
         except BatchUnsupported:
-            for i in chunk:
+            for i in idx:
                 scalar(i)
-            return
-        stats["chunks"] += 1
-        stats["batched"] += len(chunk)
-        if output == "device":
-            pcm = out[:, :total]
-        elif fmt == "s16df":
-            payload, widx, ch_ubit, moved = pull_dpack(
-                out, synth.channels, sig[3])
-            stats["d2h_bytes"] += moved
-            t4 = time.perf_counter()
-            walls["d2h"] += t4 - t3
-            pcm = pcm_pack.unpack_pcm(payload, widx, synth.channels, sig[3],
-                                      ch_ubit)[:, :total]
-            walls["unpack"] += time.perf_counter() - t4
-        else:
-            host_out = _to_host(out[..., :total].contiguous())
-            stats["d2h_bytes"] += host_out.nbytes
-            t4 = time.perf_counter()
-            walls["d2h"] += t4 - t3
+            return None
+        with lock:
+            stats["chunks"] += 1
+            stats["batched"] += len(idx)
+            stats["h2d_bytes"] += h2d
+        rec = _Chunk(cid=cid, idx=idx, lengths=lengths, dev=dev, pull=pull,
+                     channels=synth.channels, sig=sig, total=total, out=out,
+                     event=event, staged=staged)
+        fut = None if output == "device" else collect_pool.submit(finish, rec)
+        return rec, fut
+
+    def finish(rec):
+        """Wait for a chunk, pull and unpack it (a collector)."""
+        if rec.event is not None:
+            with wall("device"):
+                rec.event.synchronize()
+        rec.staged = None  # the chunk's copies have run
+        total = rec.total
+        t.mark(f"c{rec.cid}.pull_wait")
+        # the lock is taken outside the stage, so the stage sums to the
+        # link's occupancy and not to the threads' wait for it
+        with pull_lock, t.stage("collect_pull"), wall("d2h"):
+            t.mark(f"c{rec.cid}.pull0")
+            with _on(rec.dev, rec.pull):
+                if fmt == "s16df":
+                    host, widx, ch_ubit, moved = pull_dpack(
+                        rec.out, rec.channels, rec.sig[3])
+                else:
+                    host = _to_host(rec.out[..., :total].contiguous())
+                    moved = host.nbytes
+            add("d2h_bytes", moved)
+            t.count("d2h_bytes", moved)
+        rec.out = None
+        t.mark(f"c{rec.cid}.pull_done")
+        with t.stage("collect_unpack"), wall("unpack"):
+            if fmt == "s16df":
+                return pcm_pack.unpack_pcm(host, widx, rec.channels,
+                                           rec.sig[3], ch_ubit)[:, :total]
             if fmt == "s16p":
                 # byte planes [2, C, L] u8 -> int16, losslessly
-                pcm = (((host_out[1].astype(np.int32) << 8) | host_out[0])
-                       - 32768).astype(np.int16)
-            else:
-                pcm = host_out
-                if fmt == "f32" and clip_samples:
-                    np.clip(pcm, -CLIP_MAX, CLIP_MAX, out=pcm)
-            walls["unpack"] += time.perf_counter() - t4
-        c = 0
-        for i, ln in zip(chunk, pcm_lengths):
-            outs[i] = pcm[:, c : c + ln]
-            c += ln
+                return (((host[1].astype(np.int32) << 8) | host[0])
+                        - 32768).astype(np.int16)
+            if fmt == "f32" and clip_samples:
+                np.clip(host, -CLIP_MAX, CLIP_MAX, out=host)
+            return host
 
     fronts_by_idx: dict = {}
     acc: dict = {}  # channels -> [indices, dense spectrum bytes]
-    with cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
-        futs = [pool.submit(front_end_or_none, src) for src in sources]
-        # consume in SUBMISSION order so chunk composition is deterministic
-        for i, fut in enumerate(futs):
-            t0 = time.perf_counter()
-            front = fut.result()
-            walls["front_end"] += time.perf_counter() - t0
-            if front is _FAILED:
-                stats["failed"] += 1
-                continue
-            if front is None:
-                scalar(i)
-                continue
-            fronts_by_idx[i] = front
-            rec = acc.setdefault(front[1], [[], 0])
-            rec[0].append(i)
-            rec[1] += sum(b.batch_cost for b in front[3])
-            if rec[1] >= max_batch_bytes:
-                dispatch(sorted(rec[0]), fronts_by_idx)
-                acc[front[1]] = [[], 0]
-    for idxs, _nbytes in acc.values():
-        if idxs:
-            dispatch(sorted(idxs), fronts_by_idx)
+    dispatch_futs: list = []
+    front_pool = cf.ThreadPoolExecutor(max_workers=n_workers,
+                                       thread_name_prefix="vp-front")
+    # merge/prepare/dispatch run on ONE thread, in submission order (chunk
+    # composition stays deterministic) while the main thread goes on
+    # taking front ends; collectors pull and unpack behind later chunks
+    dispatch_pool = cf.ThreadPoolExecutor(max_workers=1,
+                                          thread_name_prefix="vp-dispatch")
+    collect_pool = cf.ThreadPoolExecutor(max_workers=3,
+                                         thread_name_prefix="vp-collect")
+    try:
+        with t.stage("front_end"):
+            futs = [front_pool.submit(front_end_or_none, s) for s in sources]
+            # consume in SUBMISSION order so chunk composition is
+            # deterministic
+            for i, fut in enumerate(futs):
+                with wall("front_end"):
+                    front = fut.result()
+                if front is _FAILED:
+                    add("failed", 1)
+                    continue
+                if front is None:
+                    scalar(i)
+                    continue
+                fronts_by_idx[i] = front
+                group = acc.setdefault(front[1], [[], 0])
+                group[0].append(i)
+                group[1] += sum(b.batch_cost for b in front[3])
+                if not batched or group[1] >= max_batch_bytes:
+                    dispatch_futs.append(dispatch_pool.submit(
+                        dispatch, sorted(group[0]), fronts_by_idx))
+                    acc[front[1]] = [[], 0]
+        for idxs, _nbytes in acc.values():
+            if idxs:
+                dispatch_futs.append(dispatch_pool.submit(
+                    dispatch, sorted(idxs), fronts_by_idx))
+        with t.stage("collect"):
+            # ordered drain; propagates dispatch and collector errors
+            done = [r for r in (f.result() for f in dispatch_futs) if r]
+            for rec, fut in done:
+                if fut is None:  # output="device"
+                    pcm = rec.out[:, :rec.total]
+                    if rec.event is not None:
+                        caller = torch.cuda.current_stream(rec.dev)
+                        caller.wait_event(rec.event)
+                        rec.out.record_stream(caller)
+                else:
+                    pcm = fut.result()
+                c = 0
+                for i, ln in zip(rec.idx, rec.lengths):
+                    outs[i] = pcm[:, c : c + ln]
+                    c += ln
+    finally:
+        # an error must not leave in-flight front ends, dispatches or
+        # pulls running after decode_corpus returns
+        for pool in (front_pool, dispatch_pool, collect_pool):
+            pool.shutdown(wait=True, cancel_futures=True)
+    if output == "device":
+        for i, o in enumerate(outs):
+            if isinstance(o, np.ndarray):  # a scalar-routed stream
+                outs[i] = torch.from_numpy(o).to(devs[0])
     return outs

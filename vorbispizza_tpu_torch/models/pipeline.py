@@ -26,10 +26,16 @@ and every output of the reference:
     -> for "s16d"/"s16df": pcm_pack.dpack_wire (K6: its scans, the header
        and the planes; K7 unary on a rice wire), into the one u8 wire
        buffer K4 began
+
+``BatchSynthesizer.assemble`` runs both halves for one plan on the
+current stream, and the stream-level drivers ``decode_stream_batch`` and
+``decode_file_batch`` (the reference's, plus ``device``) decode one
+stream through it; the corpus driver is models/corpus.py.
 """
 
 from __future__ import annotations
 
+import io
 import threading
 from collections import OrderedDict
 
@@ -38,14 +44,20 @@ import torch
 from torch import nn
 
 from ..config import VorbisConfig
+from ..decoder import CLIP_MAX, StreamDecoder
+from ..device import resolve_device
 from ..dsp.window import full_window
 from ..frames import (
     BatchUnsupported,
     BucketBatch,
     FramePlan,
     _bucket_groups,
+    build_plan,
+    extract_batch,
     setup_sid,
+    split_plan,
 )
+from ..ogg.container import OggContainer
 from ..native.symbols import _vec_shape
 from ..ops.coupling import couple_spectrum_chunk
 from ..ops.floor import (
@@ -963,6 +975,39 @@ class BatchSynthesizer(nn.Module):
         return dpack_wire(q, *caps, rice=rice, select=(wbyte, ubits),
                           wire=wire)
 
+    def assemble(self, plan: FramePlan, buckets: list[BucketBatch],
+                 output: str = "f32", device="cuda"):
+        """prepare_host + upload + forward of one plan on ``device``, on
+        the current stream. Returns, on the device, the kept samples
+        ``out[..., :total]``, or for the dpack wires ("s16d", "s16df")
+        ("dpack", wire, nbt, out_len, total), as the reference's
+        ``BatchSynthesizer.run`` does; [C, 0] zeros for no buckets."""
+        dev = resolve_device(device)
+        if not buckets:
+            dt = torch.int16 if output == "s16" else torch.float32
+            return torch.zeros((self.channels, 0), dtype=dt, device=dev)
+        sig, host, total = self.prepare_host(plan, buckets, output,
+                                             device=dev)
+        out = self(sig, upload(host, dev)[0])
+        if output in DPACK:
+            return ("dpack", out, wire_rows(sig[3], self.channels), sig[3],
+                    total)
+        return out[..., :total]
+
+
+def upload(arrays, device: torch.device):
+    """Host numpy arrays -> (tensors on ``device``, their pinned staging
+    copies). On the CPU the tensors are views and nothing is staged. For
+    CUDA each array is copied into pinned memory and sent with a
+    non-blocking copy on the current stream, so the host goes on while
+    the copies run; the staging copies are returned so a caller can hold
+    them until the stream has passed the copies (PyTorch's pinned
+    allocator holds a freed block until then too)."""
+    if device.type == "cpu":
+        return [torch.from_numpy(a) for a in arrays], []
+    staged = [torch.from_numpy(a).pin_memory() for a in arrays]
+    return [p.to(device, non_blocking=True) for p in staged], staged
+
 
 def device_tables(synth: BatchSynthesizer, key, device) -> dict:
     """The static per-bucket tensors ("weights") of ``key`` on ``device``,
@@ -1021,3 +1066,71 @@ def device_tables(synth: BatchSynthesizer, key, device) -> dict:
     }
     synth._cache[ck] = tables
     return tables
+
+
+# -- stream-level drivers -----------------------------------------------------
+
+
+def decode_stream_batch(provider, *, device="cuda", clip_samples: bool = True,
+                        stats=None, max_frames: int | None = None
+                        ) -> np.ndarray:
+    """Decode one logical stream entirely through the batch pipeline on
+    ``device``. Returns planar float32 PCM [channels, samples] on the
+    host. Raises BatchUnsupported for stream shapes the planner does not
+    model (callers fall back to the scalar StreamDecoder). Pass a
+    StreamStats as ``stats`` to receive the bit accounting, as the
+    reference's decode_stream_batch fills it.
+
+    ``max_frames`` bounds memory for very long streams: the plan splits
+    into chunks that decode one after another (frames.split_plan; each
+    chunk's own program, so on the card only the anchor budget holds
+    across chunkings, not bit equality)."""
+    dev = resolve_device(device)
+    dec = StreamDecoder(provider)
+    dec.initialize()
+    setup = dec._setup
+    plan = build_plan(provider, setup)
+    plans = split_plan(plan, max_frames) if max_frames else [plan]
+    synth = BatchSynthesizer(setup, dec.channels)
+    parts = []
+    for p in plans:
+        buckets = extract_batch(p, setup, dec.channels, ident=dec._ident)
+        parts.append(np.array(synth.assemble(p, buckets, device=dev).cpu(),
+                              dtype=np.float32))
+    pcm = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+    if clip_samples:
+        np.clip(pcm, -CLIP_MAX, CLIP_MAX, out=pcm)
+    if stats is not None:
+        stats.sample_rate = dec.sample_rate
+        stats.header_bits += dec.stats.header_bits
+        stats.container_bits += dec.stats.container_bits
+        for fr in plan.frames:
+            stats.add_packet(
+                samples=fr.info.sample_count,
+                audio_bits=8 * len(fr.packet.data),
+                waste_bits=0,
+                container_bits=fr.packet.container_bits,
+            )
+    return pcm
+
+
+def decode_file_batch(source, *, device="cuda", clip_samples: bool = True,
+                      max_frames: int | None = None) -> np.ndarray:
+    """Open an Ogg file (path, bytes or binary file object) and
+    batch-decode its first Vorbis stream (decode_stream_batch)."""
+    if isinstance(source, str):
+        f = open(source, "rb")
+    elif isinstance(source, (bytes, bytearray)):
+        f = io.BytesIO(source)
+    else:
+        f = source
+    try:
+        container = OggContainer(f)
+        if not container.try_init():
+            raise BatchUnsupported("no logical stream found")
+        return decode_stream_batch(container.providers[0], device=device,
+                                   clip_samples=clip_samples,
+                                   max_frames=max_frames)
+    finally:
+        if f is not source:
+            f.close()

@@ -21,19 +21,23 @@ class VorbisReader:
     def __init__(self, source, *, clip_samples: bool | None = None,
                  skip_tags: bool | None = None,
                  new_stream_callback: Callable[[StreamDecoder], bool] | None = None,
-                 leave_open: bool = False, config=None):
+                 leave_open: bool = False, config=None, accelerated: bool = False,
+                 device="cuda"):
         """``source``: file path or binary stream (seekable or forward-only).
 
         ``config``: a VorbisConfig supplying defaults (reference
         VorbisConfig.Default analog); explicit keyword args override it.
 
-        Every stream decodes through the float64 scalar StreamDecoder (the
-        port's anchor); the batch path is models.corpus.decode_corpus."""
+        ``accelerated``: serve reads/seeks from the batch pipeline on
+        ``device`` (accelerated.AcceleratedStreamDecoder) instead of the
+        scalar streaming decoder; ``device`` is used only then."""
         from .config import VorbisConfig
 
         cfg = config or VorbisConfig.default
         clip_samples = cfg.clip_samples if clip_samples is None else clip_samples
         skip_tags = cfg.skip_tags if skip_tags is None else skip_tags
+        self._accelerated = accelerated
+        self._device = device
         if isinstance(source, (str, bytes)) and not isinstance(source, bytes):
             self._file = open(source, "rb")
             self._owns = True
@@ -59,9 +63,17 @@ class VorbisReader:
             self._stream_idx = 0
 
     def _on_new_stream(self, provider) -> bool:
-        decoder = StreamDecoder(
-            provider, clip_samples=self._clip, skip_tags=self._skip_tags
-        )
+        if self._accelerated:
+            from .accelerated import AcceleratedStreamDecoder
+
+            decoder = AcceleratedStreamDecoder(
+                provider, clip_samples=self._clip, skip_tags=self._skip_tags,
+                device=self._device,
+            )
+        else:
+            decoder = StreamDecoder(
+                provider, clip_samples=self._clip, skip_tags=self._skip_tags
+            )
         # initialize() pulls header packets, which can discover further
         # multiplexed streams reentrantly; remember our slot so streams stay
         # in discovery order (reference VorbisReader.ProcessNewStream:68)

@@ -49,7 +49,9 @@ def d2h_rate_estimate(device="cpu", force: float | None = None) -> float:
                           dtype=torch.int16).to(dev)
         y = x * 31337 + 77
         host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-        torch.cuda.synchronize(dev)
+        # x and y were made on the current stream: wait for it alone, so a
+        # probe from the corpus's dispatch thread leaves other streams be
+        torch.cuda.current_stream(dev).synchronize()
         t0 = time.perf_counter()
         host.copy_(y)
         dt = time.perf_counter() - t0
