@@ -67,7 +67,24 @@ nothing of the JAX package: the float64 anchor is the port's own
    (``python -m vorbispizza_tpu_torch.tools.decode --s16``) on one
    stream, its WAV within 1 LSB of the quantized anchor; (f)
    ``output="device"`` tensors, read after the call returns with no
-   synchronize, equal to the f32 output;
+   synchronize, equal to the f32 output. Then the scale-out modules,
+   each on a mesh whose every entry is this one card (shards run one
+   after another on its dispatch stream; the partition, the sig
+   unification, the empty clones, the halo and the reductions are what is
+   checked): (g) ``parallel.corpus.decode_corpus_sharded`` of corpus32
+   over 4 shards, "s16", "f32", "device" and the fallback wires' "s16",
+   each bit-equal to decode_corpus's or, where cuBLAS sums a shard's
+   DCT-IV rows in another order, within 1e-6 of the anchor (s16 within
+   1 LSB of the quantized anchor), the differing samples counted, with 0
+   scalar, 0 failed and 0 mismatch fallbacks and the shards' wire bytes
+   summed; (h) a mixed-setup mono group (odd codebooks, lookup type 2,
+   blocksizes 64/8192, floor0) and a stereo group (corpus32 streams with a
+   value-transport multi-submap stream), sharded against the one-device
+   decode; (i) the ('stream', 'frame') mesh step at full width (n = 2048,
+   C = 2, 1024 frames a shard) on 2x2 and 1x4 meshes, within 1e-6 of its
+   one-shard run with the same clip flag; (j) ``entry.dryrun_multichip(4)``;
+   (k) ``tools.fuzz`` for FUZZ_S seconds from seed FUZZ_SEED, its counts by
+   shape and status, no failed trial;
 5. once the CPU workers of phases 3-4 have stopped: each kernel's time,
    its twin's and, where one PyTorch call computes the same function,
    that call's (CUDA events around 20 calls after a warm one, at phase
@@ -84,8 +101,11 @@ nothing of the JAX package: the float64 anchor is the port's own
    that ran between each chunk's K4 (dpack mode) and K6. Then one s16 run
    with a DecodeTimer: its per-chunk timeline and, for each chunk k >= 1,
    whether chunk k's merge began before chunk k-1's pull was done (the
-   overlap); and ``decode_file_batch`` on one corpus32 stream, the median
-   of 5 timed calls after a warm one (single-file latency).
+   overlap); ``decode_file_batch`` on one corpus32 stream, the median
+   of 5 timed calls after a warm one (single-file latency); ``tools.ablate``
+   on corpus32's first chunk (each stage snapped out in turn); and one
+   warm and three timed runs of the sharded s16 decode (4 x the card):
+   wall, realtime factor, stage walls and each shard's host packing time.
 
 Any failure raises (exit code 1). Without CUDA, or without the package
 beside it, it exits 2 and prints no result. The last two lines are the
@@ -108,6 +128,10 @@ HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 REPS = 20  # timed calls of each kernel's wrapper
 FALLBACK = {"floor1_wire": "posts", "residue_transport": "values"}
+SHARDS = 4  # mesh entries of phase 4 (g), (h) and (j), each the one card
+MESH_FRAMES = 1024  # frames a shard of the mesh step, phase 4 (i)
+FUZZ_S = 60.0  # phase 4 (k)'s budget, seconds
+FUZZ_SEED = 90000
 KERNELS = {
     # name: (source, reference stage it replaces, run its launches are
     # read from, launch-count key[, phase-3 check if not that key])
@@ -175,6 +199,22 @@ RUN_KERNELS = {
                       "ola_assemble"),
     "devices": ("residue_expand", "floor1_synth") + _S16_PATH,
     "unbatched": ("residue_expand", "floor1_synth") + _S16_PATH,
+    "sharded_s16": ("residue_expand", "floor1_synth") + _S16_PATH,
+    "sharded_f32": ("residue_expand", "floor1_synth", "couple_spectrum",
+                    "ola_assemble"),
+    "sharded_device": ("residue_expand", "floor1_synth", "couple_spectrum",
+                       "ola_assemble"),
+    "sharded_fallback_s16": ("residue_gather", "floor1_posts") + _S16_PATH,
+    "sharded_mono_s16": ("floor0_synth",) + _S16_PATH,
+    "sharded_mono_f32": ("floor0_synth", "couple_spectrum", "ola_assemble"),
+    "sharded_stereo_s16": ("residue_expand", "residue_gather",
+                           "floor1_synth") + _S16_PATH,
+    "sharded_stereo_f32": ("residue_expand", "residue_gather",
+                           "floor1_synth", "couple_spectrum", "ola_assemble"),
+    "mesh_2x2": ("floor1_posts", "couple_spectrum"),
+    "mesh_1x4": ("floor1_posts", "couple_spectrum"),
+    "dryrun": ("residue_expand", "floor1_synth", "floor1_posts")
+    + _S16_PATH,
 }
 
 
@@ -1110,6 +1150,184 @@ def check_entry_points(run, same, corpus, anchors, f32, s16, scalar_stats,
           f"output (clipped)", flush=True)
 
 
+def _hold(name, got, want, anchors, np, what):
+    """Each stream of ``got`` against ``want``: bit-equal, or (where a
+    card's GEMM sums rows in another order) within ANCHOR_TOL of the
+    float64 anchor, int16 within S16_TOL of the quantized anchor; without
+    ``anchors``, within those limits of ``want`` itself. Prints and
+    returns the count of samples that differ."""
+    differ, gap = 0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: stream {i} is {g.dtype} {g.shape}"
+                                 f", {what} {w.dtype} {w.shape}")
+        d = int(np.count_nonzero(g != w))
+        differ += d
+        if not d:
+            continue
+        ref = w if anchors is None else anchors[i]
+        if g.dtype == np.int16:
+            if anchors is not None:
+                ref = np.clip(np.rint(ref * 32768.0), -32768, 32767)
+            limit = S16_TOL
+        else:
+            limit = ANCHOR_TOL
+        off = float(np.abs(g.astype(np.float64) - ref).max())
+        gap = max(gap, off)
+        if off > limit:
+            raise AssertionError(f"{name}: stream {i} differs from {what} by "
+                                 f"{d} samples, {off} from "
+                                 f"{'the anchor' if anchors else what} "
+                                 f"(limit {limit})")
+    ref = "the anchor" if anchors is not None else what
+    print(f"  {name}: " + (f"bit-equal to {what}" if not differ else
+                           f"{differ} samples differ from {what}; the worst "
+                           f"is {gap:g} from {ref}"), flush=True)
+    return differ
+
+
+def check_scale_out(path, corpus, anchors, f32, s16, np, card):
+    """Phase 4, checks (g)-(k): the sharded corpus decode, its mixed-setup
+    groups, the mesh step, the dry run and the fuzzer, each on a mesh
+    whose every entry is this card."""
+    from vorbispizza_tpu_torch import decode_corpus
+    from vorbispizza_tpu_torch import entry as E
+    from vorbispizza_tpu_torch.decoder import CLIP_MAX
+    from vorbispizza_tpu_torch.parallel.corpus import decode_corpus_sharded
+    from vorbispizza_tpu_torch.parallel.mesh import (
+        Mesh,
+        shard_inputs,
+        sharded_decode_step,
+    )
+    from vorbispizza_tpu_torch.testing import rawstream
+    from vorbispizza_tpu_torch.tools import fuzz
+
+    mesh = Mesh(["cuda:0"] * SHARDS, ("stream",))
+
+    def sharded(name, output, sources=corpus, **settings):
+        with configured(**settings):
+            outs = path(name, lambda: decode_corpus_sharded(
+                sources, mesh, output=output))
+        st = outs.stats
+        print(f"  [{name}] stats {json.dumps(st)}", flush=True)
+        if st["scalar"] or st["failed"] or st["mismatch_fallbacks"] or (
+                st["batched"] != len(sources)):
+            raise AssertionError(f"{name}: streams left the sharded batch "
+                                 f"path: {st}")
+        return outs
+
+    print(f"phase 4 (g): decode_corpus_sharded(corpus32, {SHARDS} x cuda:0), "
+          f"output='s16', 'f32', 'device', and 's16' under the fallback "
+          f"wires", flush=True)
+    _hold("sharded_s16", sharded("sharded_s16", "s16"), s16, anchors, np,
+          "decode_corpus's int16")
+    _hold("sharded_f32", sharded("sharded_f32", "f32"), f32, anchors, np,
+          "decode_corpus's f32")
+    outs = sharded("sharded_device", "device")
+    if not all(o.device.type == "cuda" for o in outs):
+        raise AssertionError("output='device' left the card")
+    _hold("sharded_device", [o.clamp(-CLIP_MAX, CLIP_MAX).cpu().numpy()
+                             for o in outs], f32, anchors, np,
+          "decode_corpus's f32 (clipped)")
+    _hold("sharded_fallback_s16",
+          sharded("sharded_fallback_s16", "s16", **FALLBACK), s16, anchors,
+          np, "decode_corpus's int16")
+
+    print("phase 4 (h): mixed setups, sharded against the one-device "
+          "decode_corpus", flush=True)
+    groups = {
+        "mono": [rawstream.make_oddbooks_stream(),
+                 rawstream.make_lookup2_stream(),
+                 rawstream.make_extreme_blocksize_stream(),
+                 rawstream.make_floor0_stream()],
+        "stereo": corpus[:6] + [rawstream.make_multisubmap_stream()],
+    }
+    for group, sources in groups.items():
+        for output in ("s16", "f32"):
+            name = f"sharded_{group}_{output}"
+            got = sharded(name, output, sources)
+            want = decode_corpus(sources, device="cuda", output=output)
+            _hold(name, got, want, None, np, "the one-device decode")
+
+    print(f"phase 4 (i): the ('stream', 'frame') mesh step, n 2048, C 2, "
+          f"{MESH_FRAMES} frames a shard, against its one-shard run",
+          flush=True)
+    kw = E.step_config()
+    one = Mesh([["cuda:0"]], ("stream", "frame"))
+    for streams, frames in ((2, 2), (1, 4)):
+        name = f"mesh_{streams}x{frames}"
+        inputs = [np.stack([x] * 2) for x in E.example_inputs(
+            frames * MESH_FRAMES, seed=streams)]
+        grid = Mesh(np.array(["cuda:0"] * 4, dtype=object).reshape(
+            streams, frames), ("stream", "frame"))
+        args = shard_inputs(grid, *inputs)
+        pcm, clip = path(name, lambda: sharded_decode_step(grid, **kw)(*args))
+        ref, ref_clip = sharded_decode_step(one, **kw)(*inputs)
+        shape = (2, frames * MESH_FRAMES * 1024, 2)
+        if tuple(pcm.shape) != shape or not bool(pcm.isfinite().all()):
+            raise AssertionError(f"{name}: {tuple(pcm.shape)} (want {shape})"
+                                 f" or non-finite PCM")
+        err = float((pcm - ref).abs().max())
+        n_diff = int((pcm != ref).sum())
+        print(f"  {name}: {tuple(pcm.shape)}, {n_diff} samples differ from "
+              f"the one-shard run, max abs {err:.3e} (limit {ANCHOR_TOL:g}); "
+              f"has_clipped {bool(clip)} / {bool(ref_clip)}", flush=True)
+        if err > ANCHOR_TOL or bool(clip) != bool(ref_clip):
+            raise AssertionError(f"{name}: off its one-shard run")
+
+    print(f"phase 4 (j): entry.dryrun_multichip({SHARDS}, device='cuda')",
+          flush=True)
+    res = path("dryrun", lambda: E.dryrun_multichip(SHARDS, device="cuda"))
+    print(f"  {json.dumps(res)}", flush=True)
+
+    print(f"phase 4 (k): tools.fuzz on the card, {FUZZ_S:g} s from seed "
+          f"{FUZZ_SEED}", flush=True)
+    res = path("fuzz", lambda: fuzz.run(
+        FUZZ_S, FUZZ_SEED, device="cuda",
+        log=lambda m: print("  " + m, flush=True)))
+    print(f"  {res['trials']} trials in {res['seconds']:.1f} s: "
+          f"{json.dumps(res['stats'])}; by shape "
+          f"{json.dumps(res['by_shape'])} [{card}]", flush=True)
+    if res["failed"]:
+        raise AssertionError(f"fuzz: failed seeds {res['failed']}")
+
+
+def time_scale_out(corpus, card):
+    """Phase 5: the stage ablation on corpus32's first chunk, and the
+    sharded s16 decode's walls."""
+    import numpy as np
+
+    from vorbispizza_tpu_torch.parallel.corpus import decode_corpus_sharded
+    from vorbispizza_tpu_torch.parallel.mesh import Mesh
+    from vorbispizza_tpu_torch.testing.corpus32 import RECIPE
+    from vorbispizza_tpu_torch.tools import ablate
+
+    print("phase 5: tools.ablate on corpus32's first chunk (CUDA events "
+          "around 5 forward calls after a warm one)", flush=True)
+    res = ablate.run_ablation(reps=5, device="cuda",
+                              log=lambda m: print("  " + m, flush=True))
+    print(f"  ablate {json.dumps(res)} [{card}]", flush=True)
+
+    print(f"phase 5: decode_corpus_sharded(corpus32, {SHARDS} x cuda:0, "
+          f"output='s16'): one warm run, three timed runs", flush=True)
+    mesh = Mesh(["cuda:0"] * SHARDS, ("stream",))
+    o = decode_corpus_sharded(corpus, mesh, output="s16")
+    seconds = sum(p.shape[1] for p in o) / RECIPE["rate"]
+    rtfs = []
+    for rep in range(3):
+        t0 = time.perf_counter()
+        o = decode_corpus_sharded(corpus, mesh, output="s16")
+        wall = time.perf_counter() - t0
+        rtfs.append(seconds / wall)
+        print(f"  run {rep}: {wall:.4f} s, {rtfs[-1]:.1f}x realtime; d2h "
+              f"{o.stats['d2h_bytes']} B, wire {o.stats['wire_bytes']} B; "
+              f"stages {json.dumps(o.stats['stage_s'])}; prepare_host a "
+              f"shard {json.dumps(o.stats['shard_prepare_s'])} [{card}]",
+              flush=True)
+    print(f"  sharded s16: median realtime factor {float(np.median(rtfs)):.1f}"
+          f"x over {seconds:.2f} s of audio [{card}]", flush=True)
+
+
 def time_entry_points(corpus, card):
     """Phase 5: one s16 run's DecodeTimer timeline and its overlap, and
     decode_file_batch's single-file latency."""
@@ -1246,19 +1464,28 @@ def main() -> int:
 
         runs = {}
 
-        def run(name, output, sources=corpus, opts=None, **settings):
-            opts = opts or {"device": "cuda"}
-            with configured(**settings):
-                kernels.reset_counts()
-                outs = decode_corpus(sources, output=output, **opts)
-                runs[name] = dict(kernels.COUNTS)
-            stats = outs.stats
-            print(f"  [{name}] launches {runs[name]}; stats "
-                  f"{json.dumps(stats)}", flush=True)
-            missing = [k for k in RUN_KERNELS[name] if runs[name][k] == 0]
+        def path(name, fn):
+            """``fn()`` with the launch counts set to 0 just before it and
+            read just after; each kernel of RUN_KERNELS[name] must have
+            launched."""
+            kernels.reset_counts()
+            out = fn()
+            runs[name] = dict(kernels.COUNTS)
+            print(f"  [{name}] launches {runs[name]}", flush=True)
+            missing = [k for k in RUN_KERNELS.get(name, ())
+                       if runs[name][k] == 0]
             if missing:
                 raise AssertionError(f"{name}: kernels never launched: "
                                      f"{missing}")
+            return out
+
+        def run(name, output, sources=corpus, opts=None, **settings):
+            opts = opts or {"device": "cuda"}
+            with configured(**settings):
+                outs = path(name, lambda: decode_corpus(
+                    sources, output=output, **opts))
+            stats = outs.stats
+            print(f"  [{name}] stats {json.dumps(stats)}", flush=True)
             if stats["scalar"] or stats["batched"] != len(sources):
                 raise AssertionError(f"streams left the batch path: {stats}")
             return outs
@@ -1359,6 +1586,8 @@ def main() -> int:
              f0_f32, "the symbol wire's f32")
         check_entry_points(run, same, corpus, anchors, f32, s16,
                            stats_fut.result(), np, card)
+
+        check_scale_out(path, corpus, anchors, f32, s16, np, card)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -1394,6 +1623,7 @@ def main() -> int:
                     sources, device="cuda", output=output))
                 _print_profile(name, prof, card)
     time_entry_points(corpus, card)
+    time_scale_out(corpus, card)
 
     keys = ("max_abs_err", "ms", "device_ms", "device_all_ms",
             "device_launches", "plain_ms", "bound_ms", "bound_by",

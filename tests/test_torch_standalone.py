@@ -48,6 +48,10 @@ def test_port_imports_nothing_of_jax():
         "       or m.startswith(('jax.', 'vorbispizza_tpu.'))]\n"
         "assert not bad, bad\n"
         "assert len(names) > 30, names\n"
+        "new = {'entry', 'parallel.corpus', 'parallel.mesh', 'tools.ablate',\n"
+        "       'tools.fuzz', 'tools.wiresweep', 'testing.oracle',\n"
+        "       'testing.pagecraft'}\n"
+        "assert {p.__name__ + '.' + n for n in new} <= set(names), names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -225,3 +229,72 @@ def test_pager_matches_libogg_on_long_and_spanning_packets():
     for k in (1, 2, 3, 4, 5):
         assert (rawstream.page_stream(packets[:k])
                 == jax_rawstream.page_stream(packets[:k]))
+
+
+#: the pagecraft vectors and their extra arguments
+PAGECRAFT = {"make_long_first_packet": (), "make_empty_page": (),
+             "make_partial_granule": (), "make_bad_continued_flag": (),
+             "make_zero_length_packets": (), "make_max_lacing_page": (),
+             "make_multipage_continued": (),
+             "corrupt_interior_continuation": (),
+             "make_multipage_setup_header": (), "make_sample_rate": (22050,),
+             "make_serial_reuse_chain": ()}
+
+
+@pytest.mark.parametrize("name", sorted(PAGECRAFT))
+def test_pagecraft_copy_matches(name):
+    """The port's page-level anomaly vectors are the JAX package's, byte
+    for byte, on the same healthy stream."""
+    from vorbispizza_tpu.testing import pagecraft as jax_pagecraft
+    from vorbispizza_tpu_torch.testing import pagecraft
+
+    data = make_streams("stereo")[0]
+    if name == "corrupt_interior_continuation":  # needs a continued packet
+        data = jax_pagecraft.make_multipage_continued(data)
+    args = PAGECRAFT[name]
+    assert getattr(pagecraft, name)(data, *args) == \
+        getattr(jax_pagecraft, name)(data, *args)
+
+
+def test_pagecraft_vectors_all_compared():
+    from vorbispizza_tpu_torch.testing import pagecraft
+
+    made = {n for n in dir(pagecraft)
+            if n.startswith(("make_", "corrupt_"))}
+    assert made == set(PAGECRAFT)
+
+
+@pytest.mark.parametrize("group", ["stereo", "surround"])
+def test_oracle_copy_matches(group, tmp_path):
+    """The port's libvorbisfile oracle decodes like the JAX package's."""
+    from vorbispizza_tpu.testing.oracle import OracleDecoder as JaxOracle
+    from vorbispizza_tpu_torch.testing import oracle
+
+    if not oracle.available():
+        pytest.skip("libvorbisfile.so.3 does not load")
+    for i, data in enumerate(make_streams(group)):
+        path = tmp_path / f"{group}{i}.ogg"
+        path.write_bytes(data)
+        want, got = JaxOracle(str(path)), oracle.OracleDecoder(str(path))
+        assert (got.channels, got.rate, got.total) == (want.channels,
+                                                       want.rate, want.total)
+        a, b = want.read_float(), got.read_float()
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+        got.seek(1000)
+        want.seek(1000)
+        assert np.array_equal(got.read_float_n(700), want.read_float_n(700))
+
+
+def test_oracle_says_when_it_cannot_load(monkeypatch, tmp_path):
+    import ctypes
+
+    from vorbispizza_tpu_torch.testing import oracle
+
+    def missing(name, *a, **k):
+        raise OSError(f"{name}: cannot open shared object file")
+
+    monkeypatch.setattr(oracle, "_lib", None)
+    monkeypatch.setattr(ctypes, "CDLL", missing)
+    assert not oracle.available()
+    with pytest.raises(oracle.OracleUnavailable, match="libvorbisfile"):
+        oracle.OracleDecoder(str(tmp_path / "none.ogg"))

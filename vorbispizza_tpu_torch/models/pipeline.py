@@ -995,6 +995,55 @@ class BatchSynthesizer(nn.Module):
         return out[..., :total]
 
 
+_PTAG_ORDER = {"u8b": 0, "i16": 1, "f32": 2}
+
+
+def sig_pads(sig) -> dict:
+    """Extract the padded dimensions / wire dtypes of one prepare_host sig
+    as a pads dict (the hint format prepare_host consumes)."""
+    pads: dict = {}
+    statics, padded_n, seg_sig, out_len = sig[0], sig[1], sig[2], sig[3]
+    for (key, _metas), pn in zip(statics, padded_n):
+        pads[("Fp", key)] = pn[0]
+        for gi, meta in enumerate(_metas):
+            m = dict(meta)
+            if m.get("wire") == "ys":
+                pads[("ysnz", key, gi)] = m["nz_cap"]
+        if pn[2] == "sym":
+            g_seq = 0
+            for ss in pn[3]:
+                if ss is None:
+                    continue
+                for (_w, _d, _nsym, _fmt1, np_pad) in ss[7]:
+                    pads[("np", key, g_seq)] = np_pad
+                    g_seq += 1
+        else:
+            pads[("Kp", key)] = pn[2]
+            pads[("ptag", key)] = pn[3]
+            if pn[4] == "i32":
+                pads[("gtag", key)] = "i32"
+    if seg_sig and seg_sig[0] == "ev":
+        pads["Ep"] = seg_sig[1]
+    pads["out_len"] = out_len
+    return pads
+
+
+def merge_pads(sigs) -> dict:
+    """Elementwise maximum of each sig's pads: preparing every shard with
+    the merged pads yields identical sigs whenever the shards share a setup
+    and bucket-key list (parallel/corpus.py's one-sig precondition)."""
+    out: dict = {}
+    for sig in sigs:
+        for k, v in sig_pads(sig).items():
+            if isinstance(v, str):
+                cur = out.get(k)
+                if cur is None or _PTAG_ORDER.get(v, 9) > _PTAG_ORDER.get(cur, -1):
+                    out[k] = v
+            else:
+                out[k] = max(out.get(k, 0), v)
+    return out
+
+
 def upload(arrays, device: torch.device):
     """Host numpy arrays -> (tensors on ``device``, their pinned staging
     copies). On the CPU the tensors are views and nothing is staged. For

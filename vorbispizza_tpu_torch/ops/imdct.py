@@ -30,11 +30,27 @@ def dct_iv_basis(m: int) -> tuple[np.ndarray, np.ndarray]:
     return hi, lo
 
 
+#: rows of every CPU product. The CPU BLAS sums a row's products in an
+#: order that depends on how many rows share its call, so the CPU product
+#: always takes exactly this many (the last block padded with zeros): a
+#: row's result then does not depend on its chunk or shard, and one
+#: stream decodes bit for bit alike however it is batched.
+CPU_ROWS = 128
+
+
 def dct_iv(spectra: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor):
-    """[..., m] spectra -> [..., m] DCT-IV, two full-float32 products."""
+    """[..., m] spectra -> [..., m] DCT-IV, two full-float32 products (on
+    the CPU a block of CPU_ROWS rows at a time)."""
     if spectra.device.type == "cuda":
         check_fp32_matmul()
-    return torch.matmul(spectra, hi) + torch.matmul(spectra, lo)
+        return torch.matmul(spectra, hi) + torch.matmul(spectra, lo)
+    m = spectra.shape[-1]
+    rows = spectra.reshape(-1, m)
+    n = rows.shape[0]
+    if n % CPU_ROWS:
+        rows = torch.cat([rows, rows.new_zeros(-n % CPU_ROWS, m)])
+    return torch.cat([torch.matmul(b, hi) + torch.matmul(b, lo)
+                      for b in rows.split(CPU_ROWS)])[:n].view(spectra.shape)
 
 
 def imdct_window(d: torch.Tensor, window: torch.Tensor, prime: torch.Tensor,

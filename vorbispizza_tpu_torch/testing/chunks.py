@@ -1,7 +1,7 @@
 """The first merged chunk that ``decode_corpus`` forms from a list of
 streams, prepared on the host: the inputs of the kernel checks in
-``chip_smoke.py`` and of the CPU tests that follow one chunk through the
-device half."""
+``chip_smoke.py``, of the stage ablation (tools/ablate.py) and of the CPU
+tests that follow one chunk through the device half."""
 
 from __future__ import annotations
 
@@ -9,10 +9,9 @@ from ..config import VorbisConfig
 from ..models.corpus import _front_end, _synthesizer_for, merge_streams
 
 
-def first_chunk(srcs, output: str = "f32"):
-    """(synth, sig, host arrays, streams merged) of the first chunk that
-    ``decode_corpus`` forms from ``srcs`` under the current config,
-    prepared for ``output``."""
+def first_merge(srcs):
+    """(synth, plan, buckets, PCM lengths) of the first chunk that
+    ``decode_corpus`` forms from ``srcs`` under the current config."""
     fronts, cost = [], 0
     for data in srcs:
         fronts.append(_front_end(data))
@@ -22,6 +21,14 @@ def first_chunk(srcs, output: str = "f32"):
     synth = _synthesizer_for(fronts[0][0], fronts[0][1])
     for f in fronts:
         synth.add_setup(f[0])
-    plan, buckets, _ = merge_streams([f[2:4] for f in fronts])
+    plan, buckets, lengths = merge_streams([f[2:4] for f in fronts])
+    return synth, plan, buckets, lengths
+
+
+def first_chunk(srcs, output: str = "f32"):
+    """(synth, sig, host arrays, streams merged) of the first chunk that
+    ``decode_corpus`` forms from ``srcs`` under the current config,
+    prepared for ``output``."""
+    synth, plan, buckets, lengths = first_merge(srcs)
     sig, host, _ = synth.prepare_host(plan, buckets, output)
-    return synth, sig, host, len(fronts)
+    return synth, sig, host, len(lengths)
