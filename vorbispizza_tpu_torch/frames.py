@@ -24,6 +24,7 @@ exactly the reference's lapping semantics (StreamDecoder.cs:764).
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from dataclasses import dataclass, field, replace
 
@@ -33,6 +34,7 @@ from .bitstream import BitReader
 from .errors import InvalidDataError
 from .ogg.logical import Packet, PacketProvider
 from .setup.mode import WindowInfo
+from .utils import profiling
 
 
 class BatchUnsupported(Exception):
@@ -661,7 +663,11 @@ def extract_batch(
     available and ``ident`` is provided; falls back to the pure-Python
     decode otherwise. Both paths produce identical tensors (double
     accumulation, float32 output). ``use_native=None`` follows
-    VorbisConfig.default.use_native_frontend."""
+    VorbisConfig.default.use_native_frontend. Spans of the calling
+    thread's task (utils/profiling.bound): the native call
+    ``front.entropy`` (its threads' CPU as ``native_cpu_ns``) and the
+    numpy after it ``front.gather``, or the Python decode
+    ``front.python``."""
     from .config import VorbisConfig
 
     if use_native is None:
@@ -677,7 +683,8 @@ def extract_batch(
             return _extract_batch_native(
                 plan, setup, channels, ident, sym_layout=layout
             )
-    return _extract_batch_python(plan, setup, channels)
+    with profiling.sub("front.python"):
+        return _extract_batch_python(plan, setup, channels)
 
 
 def _sym_layout_cached(setup, ident):
@@ -746,20 +753,35 @@ def _extract_batch_native(
             offs[i + 1] = offs[i] + len(p)
         sblob = np.frombuffer(b"".join(packets), dtype=np.uint8)
         sstarts, sends = offs[:-1], offs[1:]
+    with profiling.sub("front.entropy") as sp:
+        # the native threads' CPU, summed by the C++ only when recorded
+        cpu = None if sp is None else ctypes.c_int64(0)
+        if sym_layout is not None:
+            dec = native.decode_packet_spans_sym(
+                blob, sblob, sstarts, sends, channels, max_order, sym_layout,
+                cpu_ns=cpu,
+            )
+        else:
+            dec = native.decode_packet_spans(
+                blob, sblob, sstarts, sends, channels, max_half, max_order,
+                cpu_ns=cpu,
+            )
+        if sp is not None:
+            sp.counters["native_cpu_ns"] = cpu.value
+    with profiling.sub("front.gather"):
+        return _gather_buckets(plan, setup, channels, dec, sym_layout)
+
+
+def _gather_buckets(plan: FramePlan, setup, channels: int, dec,
+                    sym_layout) -> list[BucketBatch]:
+    """The native decode's dense tensors -> per-bucket arrays."""
     if sym_layout is not None:
-        dec = native.decode_packet_spans_sym(
-            blob, sblob, sstarts, sends, channels, max_order, sym_layout
-        )
         # per-(packet, group) stream starts within each packet's region
         counts = dec["sym_counts"]
         goff = np.zeros_like(counts)
         np.cumsum(counts[:, :-1], axis=1, out=goff[:, 1:])
         syms_flat = dec["syms"].reshape(-1)
         slots_flat = dec["slots"].reshape(-1)
-    else:
-        dec = native.decode_packet_spans(
-            blob, sblob, sstarts, sends, channels, max_half, max_order
-        )
     meta = dec["meta"]
     for i, fr in enumerate(plan.frames):
         if meta[i, 0] != 1 or meta[i, 1] != fr.mode_idx:

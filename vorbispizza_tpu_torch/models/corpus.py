@@ -46,7 +46,6 @@ import contextlib
 import dataclasses
 import io
 import threading
-import time
 
 import numpy as np
 import torch
@@ -71,6 +70,7 @@ from ..ogg.container import OggContainer
 from ..ops import pcm_pack
 from ..reader import VorbisReader
 from ..setup.header import parse_comments, parse_ident, parse_setup_cached
+from ..utils import profiling
 from .pipeline import BatchSynthesizer, upload
 
 _SYNTH_CACHE: dict = {}
@@ -80,7 +80,8 @@ _SYNTH_CACHE_MAX = 32
 #: host wall-clock stages of decode_corpus (stats["stage_s"]), in
 #: pipeline order: the main thread's wait on front ends; the dispatch
 #: thread's merge, prepare_host, pinned staging + H2D enqueue and forward
-#: launch; the collectors' wait on a chunk's event, pull and unpack
+#: launch; the collectors' wait on a chunk's event, pull and unpack. Each
+#: sums the walls of its spans (utils/profiling.SPAN_STAGES)
 STAGES = ("front_end", "merge", "prepare", "h2d", "dispatch", "device",
           "d2h", "unpack")
 
@@ -96,6 +97,7 @@ def _synthesizer_for(setup, channels: int) -> BatchSynthesizer:
         synth = _SYNTH_CACHE.get(channels)
         if synth is None:
             synth = BatchSynthesizer(setup, channels)
+            profiling.tally("synth")
             if len(_SYNTH_CACHE) >= _SYNTH_CACHE_MAX:
                 _SYNTH_CACHE.pop(next(iter(_SYNTH_CACHE)))
             _SYNTH_CACHE[channels] = synth
@@ -107,18 +109,24 @@ def _synthesizer_for(setup, channels: int) -> BatchSynthesizer:
 def _front_end_native(data: bytes):
     """All-native front end: C++ Ogg scan -> raw arrays -> vectorized plan
     -> C++ entropy decode. Returns None when the native path cannot model
-    the stream (Python path instead)."""
+    the stream (Python path instead). Spans of the thread's task: the C++
+    scan ``front.scan``, the header parses ``front.headers``, the plan
+    ``front.plan``; extract_batch's after them."""
     if not VorbisConfig.default.use_native_frontend or not native.available():
         return None
-    res = native.scan_ogg_arrays(data)
+    with profiling.sub("front.scan"):
+        res = native.scan_ogg_arrays(data)
     if res is None or len(res[1]) < 4:
         return None
     blob, offs, granules, flags, _serial = res
     try:
-        ident = parse_ident(blob[offs[0] : offs[1]].tobytes())
-        parse_comments(blob[offs[1] : offs[2]].tobytes())
-        setup = parse_setup_cached(blob[offs[2] : offs[3]].tobytes(), ident)
-        plan = build_plan_from_scan(blob, offs, granules, flags, setup)
+        with profiling.sub("front.headers"):
+            ident = parse_ident(blob[offs[0] : offs[1]].tobytes())
+            parse_comments(blob[offs[1] : offs[2]].tobytes())
+            setup = parse_setup_cached(blob[offs[2] : offs[3]].tobytes(),
+                                       ident)
+        with profiling.sub("front.plan"):
+            plan = build_plan_from_scan(blob, offs, granules, flags, setup)
     except BatchUnsupported:
         raise
     except Exception:
@@ -128,6 +136,10 @@ def _front_end_native(data: bytes):
 
 
 def _front_end(source):
+    """One source -> (setup, channels, plan, buckets): the native front
+    end, or the Python path (counted as "front_python", its Ogg and header
+    parse and plan the span ``front.python``) where that cannot model the
+    stream."""
     if isinstance(source, (bytes, bytearray)):
         data = bytes(source)
     else:
@@ -136,13 +148,15 @@ def _front_end(source):
     fast = _front_end_native(data)
     if fast is not None:
         return fast
-    container = OggContainer(io.BytesIO(data))
-    if not container.try_init():
-        raise InvalidDataError("no logical stream found")
-    provider = container.providers[0]
-    dec = StreamDecoder(provider)
-    dec.initialize()
-    plan = build_plan(provider, dec._setup)
+    profiling.tally("front_python")
+    with profiling.sub("front.python"):
+        container = OggContainer(io.BytesIO(data))
+        if not container.try_init():
+            raise InvalidDataError("no logical stream found")
+        provider = container.providers[0]
+        dec = StreamDecoder(provider)
+        dec.initialize()
+        plan = build_plan(provider, dec._setup)
     buckets = extract_batch(plan, dec._setup, dec.channels, ident=dec._ident)
     return dec._setup, dec.channels, plan, buckets
 
@@ -286,11 +300,15 @@ class CorpusOutputs(list):
     """decode_corpus's per-source outputs, in input order, plus ``stats``:
     stream counts (streams, batched, scalar, failed), ``chunks``,
     ``h2d_bytes`` and ``d2h_bytes`` (the wire bytes sent to the devices
-    and copied back), and ``stage_s``: host wall seconds per stage of
-    STAGES. The stages run on three kinds of thread at once, so their
-    walls overlap and need not sum to the call's wall; "device" is only
-    the collectors' wait on chunk events, the device time no host work
-    hid."""
+    and copied back), ``builds`` (the call's table builds by kind,
+    utils/profiling.BUILDS: setup parses, synthesizers, wire layouts, K1
+    tables, bucket tables; 0 when earlier calls built them all),
+    ``front_python`` (streams the native front end could not model) and
+    ``stage_s``: host wall seconds per stage of STAGES, each the summed
+    walls of its spans (utils/profiling.SPAN_STAGES). The stages run on
+    three kinds of thread at once, so their walls overlap and need not
+    sum to the call's wall; "device" is the collectors' ``wait`` spans on
+    chunk events, the device time no host work hid."""
 
     stats: dict
 
@@ -351,27 +369,11 @@ def _on(dev: torch.device, stream):
 
 
 class _NullTimer:
-    @contextlib.contextmanager
     def stage(self, name):
-        yield
+        return contextlib.nullcontext()
 
     def count(self, name, value):
         pass
-
-    def mark(self, name):
-        pass
-
-
-class _MarkAdapter:
-    """A timer without ``mark`` (older DecodeTimer-shaped objects), wrapped
-    rather than mutated: a slotted or frozen timer type would reject the
-    attribute anyway."""
-
-    def __init__(self, inner):
-        self._inner = inner
-
-    def __getattr__(self, name):
-        return getattr(self._inner, name)
 
     def mark(self, name):
         pass
@@ -382,7 +384,8 @@ class _Chunk:
     """A dispatched chunk, handed from the dispatch thread to a collector
     and to the main thread: its streams and their PCM lengths, its device
     and pull stream, its sig, kept samples, device output, completion
-    event (None on the CPU) and pinned staging copies."""
+    event (None on the CPU), pinned staging copies and the key of the
+    stream whose front end closed it."""
 
     cid: int
     idx: list
@@ -395,6 +398,7 @@ class _Chunk:
     out: object
     event: object
     staged: object
+    cause: str
 
 
 def decode_corpus(
@@ -428,7 +432,17 @@ def decode_corpus(
     utils.profiling.DecodeTimer (stages front_end, merge, prepare,
     dispatch, collect, collect_pull, collect_unpack; counters h2d_bytes
     and d2h_bytes; per-chunk marks c<k>.merge0, .dispatch0, .dispatched,
-    .pull_wait, .pull0, .pull_done). ``on_error``: "raise" propagates a
+    .pull_wait, .pull0, .pull_done; and spans, each with its thread's CPU
+    time: the caller's ``call`` and ``front.wait`` (key s<i>, stream i);
+    a front-end worker's ``front`` (s<i>) and within it ``front.scan``,
+    ``front.headers``, ``front.plan``, ``front.entropy`` (counter
+    ``native_cpu_ns``: the C++ decode's threads) and ``front.gather``, or
+    ``front.python``; the dispatch thread's ``merge``, ``prepare``,
+    ``h2d``, ``launch`` and a collector's ``wait``, ``pull``, ``unpack``
+    (key c<k>, chunk k; cause the s<i> whose front end closed the chunk)).
+    Without a timer no span is made and no thread clock read. A timer
+    lacking ``span`` or ``mark`` is wrapped (profiling.adapt): its
+    stages still flow. ``on_error``: "raise" propagates a
     malformed source's error; "none" leaves its slot None. An error of a
     dispatch or a collector propagates, after both pools have stopped."""
     if output not in ("f32", "s16", "device"):
@@ -447,37 +461,30 @@ def decode_corpus(
             raise ValueError(f"s16_wire {cfg.s16_wire!r} (not one of "
                              f"{list(S16_FORMATS)})")
         fmt = S16_FORMATS[cfg.s16_wire]
-    t = timer if timer is not None else _NullTimer()
-    if not hasattr(t, "mark"):
-        t = _MarkAdapter(t)
+    t = profiling.adapt(timer) if timer is not None else _NullTimer()
 
     outs = CorpusOutputs([None] * len(sources))
     stats = {"streams": len(sources), "batched": 0, "scalar": 0, "failed": 0,
              "chunks": 0, "h2d_bytes": 0, "d2h_bytes": 0,
+             "builds": dict.fromkeys(profiling.BUILDS, 0), "front_python": 0,
              "stage_s": dict.fromkeys(STAGES, 0.0)}
     outs.stats = stats
     lock = threading.Lock()  # stats: the three kinds of thread update it
     pull_lock = threading.Lock()  # one pull at a time: the link is one pipe
+    spans = profiling.CallSpans(None if timer is None else t, stats, lock)
 
     def add(key, value):
         with lock:
             stats[key] += value
 
-    @contextlib.contextmanager
-    def wall(stage):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            with lock:
-                stats["stage_s"][stage] += dt
-
     _FAILED = object()  # per-file failure sentinel (on_error="none")
 
-    def front_end_or_none(source):
+    def front_end_or_none(i, source):
+        key = f"s{i}"
+        profiling.bind(spans, key)
         try:
-            return _front_end(source)
+            with spans("front", key):
+                return _front_end(source)
         except BatchUnsupported:
             return None
         except VorbisError:
@@ -501,18 +508,19 @@ def decode_corpus(
     lanes = {d: _streams(d) for d in devs}
     n_dispatched = 0  # the dispatch thread's alone
 
-    def dispatch(idx, fronts):
+    def dispatch(idx, fronts, cause):
         """Merge, pack, send and launch one chunk (the dispatch thread)."""
         nonlocal n_dispatched
         cid = n_dispatched
         n_dispatched += 1  # a chunk that goes scalar keeps its cid too
-        t.mark(f"c{cid}.merge0")
+        ck = f"c{cid}"
+        t.mark(f"{ck}.merge0")
         setup, channels = fronts[idx[0]][:2]
         synth = _synthesizer_for(setup, channels)
         for i in idx[1:]:  # cross-setup chunk: register every setup
             synth.add_setup(fronts[i][0])
         if batched:
-            with t.stage("merge"), wall("merge"):
+            with spans("merge", ck, cause):
                 plan, buckets, lengths = merge_streams(
                     [fronts[i][2:4] for i in idx])
         else:
@@ -532,22 +540,21 @@ def decode_corpus(
         stream, pull = lanes[dev]
         try:
             with _on(dev, stream):
-                with t.stage("prepare"):
-                    with wall("prepare"):
-                        sig, host, total = synth.prepare_host(
-                            plan, buckets, fmt, device=dev)
-                    with wall("h2d"):
-                        bufs, staged = upload(host, dev)
+                with spans("prepare", ck, cause):
+                    sig, host, total = synth.prepare_host(
+                        plan, buckets, fmt, device=dev)
+                with spans("h2d", ck, cause):
+                    bufs, staged = upload(host, dev)
                 h2d = sum(a.nbytes for a in host)
                 t.count("h2d_bytes", h2d)
-                t.mark(f"c{cid}.dispatch0")
-                with t.stage("dispatch"), wall("dispatch"):
+                t.mark(f"{ck}.dispatch0")
+                with spans("launch", ck, cause):
                     out = synth(sig, bufs)
                     event = None
                     if stream is not None:
                         event = torch.cuda.Event(blocking=True)
                         event.record(stream)
-                t.mark(f"c{cid}.dispatched")
+                t.mark(f"{ck}.dispatched")
         except BatchUnsupported:
             for i in idx:
                 scalar(i)
@@ -558,22 +565,23 @@ def decode_corpus(
             stats["h2d_bytes"] += h2d
         rec = _Chunk(cid=cid, idx=idx, lengths=lengths, dev=dev, pull=pull,
                      channels=synth.channels, sig=sig, total=total, out=out,
-                     event=event, staged=staged)
+                     event=event, staged=staged, cause=cause)
         fut = None if output == "device" else collect_pool.submit(finish, rec)
         return rec, fut
 
     def finish(rec):
         """Wait for a chunk, pull and unpack it (a collector)."""
+        ck = f"c{rec.cid}"
         if rec.event is not None:
-            with wall("device"):
+            with spans("wait", ck, rec.cause):
                 rec.event.synchronize()
         rec.staged = None  # the chunk's copies have run
         total = rec.total
-        t.mark(f"c{rec.cid}.pull_wait")
-        # the lock is taken outside the stage, so the stage sums to the
+        t.mark(f"{ck}.pull_wait")
+        # the lock is taken outside the span, so the stage sums to the
         # link's occupancy and not to the threads' wait for it
-        with pull_lock, t.stage("collect_pull"), wall("d2h"):
-            t.mark(f"c{rec.cid}.pull0")
+        with pull_lock, spans("pull", ck, rec.cause):
+            t.mark(f"{ck}.pull0")
             with _on(rec.dev, rec.pull):
                 if fmt == "s16df":
                     host, widx, ch_ubit, moved = pull_dpack(
@@ -584,8 +592,8 @@ def decode_corpus(
             add("d2h_bytes", moved)
             t.count("d2h_bytes", moved)
         rec.out = None
-        t.mark(f"c{rec.cid}.pull_done")
-        with t.stage("collect_unpack"), wall("unpack"):
+        t.mark(f"{ck}.pull_done")
+        with spans("unpack", ck, rec.cause):
             if fmt == "s16df":
                 return pcm_pack.unpack_pcm(host, widx, rec.channels,
                                            rec.sig[3], ch_ubit)[:, :total]
@@ -600,64 +608,70 @@ def decode_corpus(
     fronts_by_idx: dict = {}
     acc: dict = {}  # channels -> [indices, dense spectrum bytes]
     dispatch_futs: list = []
-    front_pool = cf.ThreadPoolExecutor(max_workers=n_workers,
-                                       thread_name_prefix="vp-front")
-    # merge/prepare/dispatch run on ONE thread, in submission order (chunk
-    # composition stays deterministic) while the main thread goes on
-    # taking front ends; collectors pull and unpack behind later chunks
-    dispatch_pool = cf.ThreadPoolExecutor(max_workers=1,
-                                          thread_name_prefix="vp-dispatch")
-    collect_pool = cf.ThreadPoolExecutor(max_workers=3,
-                                         thread_name_prefix="vp-collect")
-    try:
-        with t.stage("front_end"):
-            futs = [front_pool.submit(front_end_or_none, s) for s in sources]
-            # consume in SUBMISSION order so chunk composition is
-            # deterministic
-            for i, fut in enumerate(futs):
-                with wall("front_end"):
-                    front = fut.result()
-                if front is _FAILED:
-                    add("failed", 1)
-                    continue
-                if front is None:
-                    scalar(i)
-                    continue
-                fronts_by_idx[i] = front
-                group = acc.setdefault(front[1], [[], 0])
-                group[0].append(i)
-                group[1] += sum(b.batch_cost for b in front[3])
-                if not batched or group[1] >= max_batch_bytes:
+    with spans("call"):
+        front_pool = cf.ThreadPoolExecutor(max_workers=n_workers,
+                                           thread_name_prefix="vp-front")
+        # merge/prepare/dispatch run on ONE thread, in submission order
+        # (chunk composition stays deterministic) while the main thread
+        # goes on taking front ends; collectors pull and unpack behind
+        # later chunks. The call's table builds on the dispatch thread
+        # count to it (profiling.bind)
+        dispatch_pool = cf.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="vp-dispatch",
+            initializer=profiling.bind, initargs=(spans,))
+        collect_pool = cf.ThreadPoolExecutor(max_workers=3,
+                                             thread_name_prefix="vp-collect")
+        try:
+            with t.stage("front_end"):
+                futs = [front_pool.submit(front_end_or_none, i, s)
+                        for i, s in enumerate(sources)]
+                # consume in SUBMISSION order so chunk composition is
+                # deterministic
+                for i, fut in enumerate(futs):
+                    with spans("front.wait", f"s{i}"):
+                        front = fut.result()
+                    if front is _FAILED:
+                        add("failed", 1)
+                        continue
+                    if front is None:
+                        scalar(i)
+                        continue
+                    fronts_by_idx[i] = front
+                    group = acc.setdefault(front[1], [[], 0])
+                    group[0].append(i)
+                    group[1] += sum(b.batch_cost for b in front[3])
+                    if not batched or group[1] >= max_batch_bytes:
+                        dispatch_futs.append(dispatch_pool.submit(
+                            dispatch, sorted(group[0]), fronts_by_idx,
+                            f"s{i}"))
+                        acc[front[1]] = [[], 0]
+            for idxs, _nbytes in acc.values():
+                if idxs:  # closed by the end of the input: its last stream
                     dispatch_futs.append(dispatch_pool.submit(
-                        dispatch, sorted(group[0]), fronts_by_idx))
-                    acc[front[1]] = [[], 0]
-        for idxs, _nbytes in acc.values():
-            if idxs:
-                dispatch_futs.append(dispatch_pool.submit(
-                    dispatch, sorted(idxs), fronts_by_idx))
-        with t.stage("collect"):
-            # ordered drain; propagates dispatch and collector errors
-            done = [r for r in (f.result() for f in dispatch_futs) if r]
-            for rec, fut in done:
-                if fut is None:  # output="device"
-                    pcm = rec.out[:, :rec.total]
-                    if rec.event is not None:
-                        caller = torch.cuda.current_stream(rec.dev)
-                        caller.wait_event(rec.event)
-                        rec.out.record_stream(caller)
-                else:
-                    pcm = fut.result()
-                c = 0
-                for i, ln in zip(rec.idx, rec.lengths):
-                    outs[i] = pcm[:, c : c + ln]
-                    c += ln
-    finally:
-        # an error must not leave in-flight front ends, dispatches or
-        # pulls running after decode_corpus returns
-        for pool in (front_pool, dispatch_pool, collect_pool):
-            pool.shutdown(wait=True, cancel_futures=True)
-    if output == "device":
-        for i, o in enumerate(outs):
-            if isinstance(o, np.ndarray):  # a scalar-routed stream
-                outs[i] = torch.from_numpy(o).to(devs[0])
+                        dispatch, sorted(idxs), fronts_by_idx, f"s{idxs[-1]}"))
+            with t.stage("collect"):
+                # ordered drain; propagates dispatch and collector errors
+                done = [r for r in (f.result() for f in dispatch_futs) if r]
+                for rec, fut in done:
+                    if fut is None:  # output="device"
+                        pcm = rec.out[:, :rec.total]
+                        if rec.event is not None:
+                            caller = torch.cuda.current_stream(rec.dev)
+                            caller.wait_event(rec.event)
+                            rec.out.record_stream(caller)
+                    else:
+                        pcm = fut.result()
+                    c = 0
+                    for i, ln in zip(rec.idx, rec.lengths):
+                        outs[i] = pcm[:, c : c + ln]
+                        c += ln
+        finally:
+            # an error must not leave in-flight front ends, dispatches or
+            # pulls running after decode_corpus returns
+            for pool in (front_pool, dispatch_pool, collect_pool):
+                pool.shutdown(wait=True, cancel_futures=True)
+        if output == "device":
+            for i, o in enumerate(outs):
+                if isinstance(o, np.ndarray):  # a scalar-routed stream
+                    outs[i] = torch.from_numpy(o).to(devs[0])
     return outs

@@ -75,6 +75,7 @@ from ..ops.pcm_pack import dpack_wire, wire_buffer, wire_caps, wire_rows
 from ..ops.residue_sym import bucket_table, expand_bucket, pack_bits
 from ..ops.residue_values import residue_gather
 from ..setup.mode import window_geometry
+from ..utils import profiling
 from ..utils.link import d2h_rate_estimate
 
 #: outputs of the fused body (models/pipeline.py _fused_body)
@@ -780,6 +781,7 @@ class BatchSynthesizer(nn.Module):
         if cached is None:
             cached = self._layout(list(sig[0]), list(sig[1]), self.channels)[0]
             self._cache[("layout", sig)] = cached
+            profiling.tally("layout")
         return cached
 
     def buckets(self, sig, bufs) -> list[dict]:
@@ -828,6 +830,7 @@ class BatchSynthesizer(nn.Module):
             cached.append((torch.from_numpy(table).to(device), n_groups,
                            n_blocks))
         self._cache[ck] = cached
+        profiling.tally("k1")
         return cached
 
     def residue_calls(self, bk) -> list:
@@ -1114,6 +1117,7 @@ def device_tables(synth: BatchSynthesizer, key, device) -> dict:
         "ab": put(inverse_db_tables()),
     }
     synth._cache[ck] = tables
+    profiling.tally("tables")
     return tables
 
 

@@ -88,6 +88,7 @@ def _load():
             C.POINTER(C.c_int32),             # f0_amp
             C.POINTER(C.c_int16),             # ys (coded floor1 values)
             C.c_int,                          # n_threads
+            C.POINTER(C.c_int64),             # threads' CPU ns (nullable)
         ]
         lib.vp_unpack_pcm.restype = C.c_int
         lib.vp_unpack_pcm.argtypes = [
@@ -117,6 +118,7 @@ def _load():
             C.POINTER(C.c_int32),             # pair_counts
             C.c_int64, C.c_int64, C.c_int64, C.c_int64,  # pt_max/sym_cap/n_groups/n_sp
             C.c_int,                          # n_threads
+            C.POINTER(C.c_int64),             # threads' CPU ns (nullable)
         ]
         _lib = lib
         return _lib
@@ -232,10 +234,13 @@ def decode_packet_spans(
     max_half: int,
     max_order: int,
     n_threads: int | None = None,
+    cpu_ns: C.c_int64 | None = None,
 ):
     """Decode audio packets addressed as (start, end) spans into ``data``
     (u8 array — e.g. the Ogg scan's blob, handed straight through with no
-    re-join or per-packet copies) -> dense tensors.
+    re-join or per-packet copies) -> dense tensors. ``cpu_ns``: a
+    ctypes.c_int64 to which the decode adds the CPU nanoseconds of every
+    thread that ran it (CLOCK_THREAD_CPUTIME_ID); None reads no clock.
 
     Returns dict with: meta [P,5] i32 (ok, mode_idx, prev, next,
     audio bits consumed — exact StreamStats accounting),
@@ -277,6 +282,7 @@ def decode_packet_spans(
         _ptr(f0_amp, C.c_int32),
         _ptr(ys, C.c_int16),
         int(n_threads),
+        None if cpu_ns is None else C.byref(cpu_ns),
     )
     if rc != 0:
         raise RuntimeError(f"vp_decode_packets failed: {rc}")
@@ -351,11 +357,13 @@ def decode_packet_spans_sym(
     max_order: int,
     layout,
     n_threads: int | None = None,
+    cpu_ns: C.c_int64 | None = None,
 ):
     """Symbol-mode decode (frontend.cpp vp_decode_packets_sym): floors as
     decode_packet_spans, residues as classifications + VQ entry numbers
     (see native/symbols.py for the wire contract). ``layout`` is the
-    SymLayout from symbols.symbol_layout().
+    SymLayout from symbols.symbol_layout(); ``cpu_ns`` as
+    decode_packet_spans's.
 
     Returns the decode_packet_spans dict minus ``residues`` (``ys``
     included), plus
@@ -404,6 +412,7 @@ def decode_packet_spans_sym(
         _ptr(pair_counts, C.c_int32),
         layout.pt_max, layout.sym_cap, layout.n_groups, layout.n_sp,
         int(n_threads),
+        None if cpu_ns is None else C.byref(cpu_ns),
     )
     if rc != 0:
         raise RuntimeError(f"vp_decode_packets_sym failed: {rc}")

@@ -18,6 +18,7 @@
 #include <atomic>
 #include <cstdint>
 #include <cstring>
+#include <ctime>
 #include <thread>
 #include <type_traits>
 #include <vector>
@@ -971,6 +972,47 @@ static void vp_block_avx512(const uint8_t* p, int wi, const int32_t* qv,
 }  // namespace
 #endif  // VP_UNPACK_AVX512
 
+namespace {
+
+// CPU nanoseconds the calling thread has run (CLOCK_THREAD_CPUTIME_ID).
+int64_t thread_cpu_ns() {
+    timespec ts;
+    clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
+    return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
+}
+
+// Runs work(lo, hi) over [0, n_pkts) on n_threads threads (the caller's
+// own when 1). A non-null cpu_ns gets each run's thread CPU added
+// atomically; a null one reads no clock.
+template <typename Work>
+void run_threads(const Work& work, int64_t n_pkts, int n_threads,
+                 int64_t* cpu_ns) {
+    auto timed = [&](int64_t lo, int64_t hi) {
+        if (!cpu_ns) {
+            work(lo, hi);
+            return;
+        }
+        int64_t c0 = thread_cpu_ns();
+        work(lo, hi);
+        __atomic_fetch_add(cpu_ns, thread_cpu_ns() - c0, __ATOMIC_RELAXED);
+    };
+    if (n_threads == 1) {
+        timed(0, n_pkts);
+        return;
+    }
+    std::vector<std::thread> threads;
+    int64_t chunk = (n_pkts + n_threads - 1) / n_threads;
+    for (int t = 0; t < n_threads; t++) {
+        int64_t lo = t * chunk;
+        int64_t hi = lo + chunk < n_pkts ? lo + chunk : n_pkts;
+        if (lo >= hi) break;
+        threads.emplace_back(timed, lo, hi);
+    }
+    for (auto& th : threads) th.join();
+}
+
+}  // namespace
+
 extern "C" {
 
 // Packets are addressed by independent (start, end) spans into pkt_data so
@@ -982,7 +1024,7 @@ int vp_decode_packets(const uint8_t* blob, int64_t blob_len,
                       int64_t n_pkts, int32_t* meta, float* residues,
                       int32_t* posts, uint8_t* step2, uint8_t* used,
                       float* f0_coeffs, int32_t* f0_amp, int16_t* ys,
-                      int n_threads) {
+                      int n_threads, int64_t* cpu_ns) {
     Setup s;
     if (!parse_setup(blob, blob_len, s)) return -1;
     if (s.channels > 256) return -2;
@@ -999,19 +1041,7 @@ int vp_decode_packets(const uint8_t* blob, int64_t blob_len,
         }
     };
 
-    if (n_threads == 1) {
-        work(0, n_pkts);
-    } else {
-        std::vector<std::thread> threads;
-        int64_t chunk = (n_pkts + n_threads - 1) / n_threads;
-        for (int t = 0; t < n_threads; t++) {
-            int64_t lo = t * chunk;
-            int64_t hi = lo + chunk < n_pkts ? lo + chunk : n_pkts;
-            if (lo >= hi) break;
-            threads.emplace_back(work, lo, hi);
-        }
-        for (auto& th : threads) th.join();
-    }
+    run_threads(work, n_pkts, n_threads, cpu_ns);
     return 0;
 }
 
@@ -1030,7 +1060,7 @@ int vp_decode_packets_sym(const uint8_t* blob, int64_t blob_len,
                           int32_t* sym_counts,
                           int32_t* pair_counts, int64_t pt_max,
                           int64_t sym_cap, int64_t n_groups, int64_t n_sp,
-                          int n_threads) {
+                          int n_threads, int64_t* cpu_ns) {
     Setup s;
     if (!parse_setup(blob, blob_len, s)) return -1;
     if (s.channels > 256) return -2;
@@ -1056,19 +1086,7 @@ int vp_decode_packets_sym(const uint8_t* blob, int64_t blob_len,
         }
     };
 
-    if (n_threads == 1) {
-        work(0, n_pkts);
-    } else {
-        std::vector<std::thread> threads;
-        int64_t chunk = (n_pkts + n_threads - 1) / n_threads;
-        for (int t = 0; t < n_threads; t++) {
-            int64_t lo = t * chunk;
-            int64_t hi = lo + chunk < n_pkts ? lo + chunk : n_pkts;
-            if (lo >= hi) break;
-            threads.emplace_back(work, lo, hi);
-        }
-        for (auto& th : threads) th.join();
-    }
+    run_threads(work, n_pkts, n_threads, cpu_ns);
     return 0;
 }
 

@@ -38,8 +38,6 @@ a wire that fails its checks raises.
 from __future__ import annotations
 
 import concurrent.futures as cf
-import contextlib
-import time
 
 import numpy as np
 import torch
@@ -62,6 +60,7 @@ from ..models.corpus import (
 )
 from ..models.pipeline import DPACK, merge_pads, upload
 from ..ops.pcm_pack import unpack_pcm
+from ..utils.profiling import CallSpans, DecodeTimer, adapt
 
 __all__ = [
     "ShardMismatch",
@@ -175,18 +174,6 @@ def _unify_buckets(merged):
     return blists
 
 
-@contextlib.contextmanager
-def _wall(stats, stage: str):
-    """Add the block's host wall seconds to ``stats["stage_s"][stage]``
-    (nothing without stats)."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if stats is not None:
-            stats["stage_s"][stage] += time.perf_counter() - t0
-
-
 def _mesh_devices(mesh) -> list:
     if len(mesh.axis_names) != 1:
         raise ShardMismatch("sharded_chunk_run needs a 1-D mesh")
@@ -194,7 +181,7 @@ def _mesh_devices(mesh) -> list:
 
 
 def sharded_chunk_run(synth, shard_items, mesh, output: str = "s16df",
-                      stats: dict | None = None):
+                      stats: dict | None = None, timer=None):
     """Launch one decode of ``shard_items`` (one list of (plan, buckets)
     per mesh device; empty lists allowed) on a 1-D mesh, every shard under
     one unified sig.
@@ -203,15 +190,18 @@ def sharded_chunk_run(synth, shard_items, mesh, output: str = "s16df",
     shard k's device output (None for a shard with no streams, which is
     not launched) and ``events[k]`` its completion event on the device's
     dispatch stream (None on the CPU); unpack each with unpack_shard once
-    its event has passed. ``stats`` (decode_corpus_sharded's) gets the
-    host walls of the merge, prepare, h2d and dispatch stages, and each
-    shard's prepare_host seconds in "shard_prepare_s"."""
+    its event has passed. Spans on ``timer`` (a DecodeTimer when None):
+    ``merge``, and for shard k (key shard<k>) ``prepare``, ``h2d`` and
+    ``launch``. ``stats`` (decode_corpus_sharded's) gets the spans' walls
+    in its stages, and each shard's ``prepare`` walls summed in
+    "shard_prepare_s"."""
     devs = _mesh_devices(mesh)
     if len(shard_items) != len(devs):
         raise ShardMismatch(
             f"{len(shard_items)} shards for a {len(devs)}-device mesh"
         )
-    with _wall(stats, "merge"):
+    spans = CallSpans(DecodeTimer() if timer is None else timer, stats)
+    with spans("merge"):
         merged = [
             merge_streams(items) if items else (_empty_plan(), [], [])
             for items in shard_items
@@ -223,10 +213,10 @@ def sharded_chunk_run(synth, shard_items, mesh, output: str = "s16df",
         preps = []
         for k, ((plan, _, _), bl, dev) in enumerate(zip(merged, blists,
                                                         devs)):
-            t0 = time.perf_counter()
-            preps.append(synth.prepare_host(plan, bl, output, pads=pads,
-                                            device=dev))
-            secs[k] += time.perf_counter() - t0
+            with spans("prepare", f"shard{k}") as sp:
+                preps.append(synth.prepare_host(plan, bl, output, pads=pads,
+                                                device=dev))
+            secs[k] += sp.wall_s
         return preps
 
     preps = prepare({})
@@ -235,20 +225,20 @@ def sharded_chunk_run(synth, shard_items, mesh, output: str = "s16df",
         preps = prepare(merge_pads(sigs))
         sigs = [p[0] for p in preps]
     if stats is not None:
-        stats["stage_s"]["prepare"] += sum(secs)
         stats["shard_prepare_s"] += secs
     if len(set(sigs)) > 1:
         raise ShardMismatch("shard sigs did not unify under max pads")
     sig = sigs[0]
     outs, events = [], []
-    for items, (_, host, _), dev in zip(shard_items, preps, devs):
+    for k, (items, (_, host, _), dev) in enumerate(zip(shard_items, preps,
+                                                       devs)):
         out = event = None
         if items:
             stream, _ = _streams(dev)
             with _on(dev, stream):
-                with _wall(stats, "h2d"):
+                with spans("h2d", f"shard{k}"):
                     bufs = upload(host, dev)[0]
-                with _wall(stats, "dispatch"):
+                with spans("launch", f"shard{k}"):
                     out = synth(sig, bufs)
                 if stream is not None:
                     event = torch.cuda.Event(blocking=True)
@@ -261,20 +251,22 @@ def sharded_chunk_run(synth, shard_items, mesh, output: str = "s16df",
 
 
 def unpack_shard(row: torch.Tensor, sig, channels: int, total: int,
-                 stats: dict | None = None) -> np.ndarray:
+                 stats: dict | None = None, timer=None) -> np.ndarray:
     """One shard's device output -> host PCM [C, total] (int16 for dpack,
     else the row's dtype), pulled on the current stream. ``stats`` gets
-    the bytes copied ("d2h_bytes") and, for dpack, the wire's payload
-    bytes ("wire_bytes")."""
+    the bytes copied ("d2h_bytes"), for dpack the wire's payload bytes
+    ("wire_bytes"), and the walls of the spans ``pull`` and ``unpack``
+    (on ``timer``, where one is given)."""
+    spans = CallSpans(timer, stats)
     if sig[5] in DPACK:
-        with _wall(stats, "d2h"):
+        with spans("pull"):
             payload, widx, ch_ubit, moved = pull_dpack(row, channels, sig[3])
-        with _wall(stats, "unpack"):
+        with spans("unpack"):
             pcm = unpack_pcm(payload, widx, channels, sig[3],
                              ch_ubit)[:, :total]
         wire = payload.nbytes
     else:
-        with _wall(stats, "d2h"):
+        with spans("pull"):
             pcm = _to_host(row[..., :total].contiguous())
         moved, wire = pcm.nbytes, 0
     if stats is not None:
@@ -283,7 +275,7 @@ def unpack_shard(row: torch.Tensor, sig, channels: int, total: int,
     return pcm
 
 
-def _land(out, event, dev, sig, channels, total, output, stats):
+def _land(out, event, dev, sig, channels, total, output, stats, timer):
     """A launched output -> what ``output`` asks for: a [C, total] device
     view the caller's current stream waits for ("device"), or host PCM
     pulled on the device's pull stream after the event (f32 clipped, as
@@ -295,17 +287,18 @@ def _land(out, event, dev, sig, channels, total, output, stats):
             out.record_stream(caller)
         return out[..., :total]
     if event is not None:
-        with _wall(stats, "device"):
+        with CallSpans(timer, stats)("wait"):
             event.synchronize()
     with _on(dev, _streams(dev)[1]):
-        pcm = unpack_shard(out, sig, channels, total, stats)
+        pcm = unpack_shard(out, sig, channels, total, stats, timer)
     if pcm.dtype == np.float32:
         np.clip(pcm, -CLIP_MAX, CLIP_MAX, out=pcm)
     return pcm
 
 
 def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
-                          on_error: str = "raise") -> CorpusOutputs:
+                          on_error: str = "raise",
+                          timer=None) -> CorpusOutputs:
     """Decode a corpus with stream-level data parallelism over ``mesh``
     (1-D, parallel.mesh.Mesh). Groups streams by channel count (setups may
     differ — bucket keys carry setup identity), partitions each group over
@@ -316,9 +309,14 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
     input order, with ``stats``: streams, groups, shards (launched),
     batched, scalar (streams routed to the scalar decoder), failed,
     mismatch_fallbacks (groups dispatched per device), d2h_bytes,
-    wire_bytes, ``stage_s`` (host wall seconds of models/corpus.py's
-    STAGES, one after another here) and ``shard_prepare_s`` (each
-    launched group's prepare_host seconds a shard) (the dpack payload bytes of every shard).
+    wire_bytes (the dpack payload bytes of every shard), ``stage_s`` (host
+    wall seconds of models/corpus.py's STAGES, one after another here, the
+    walls of the spans of utils/profiling.SPAN_STAGES) and
+    ``shard_prepare_s`` (each launched group's prepare_host seconds a
+    shard, from its ``prepare`` spans keyed shard<k>). ``timer``: a
+    DecodeTimer to keep the spans (sharded_chunk_run's, the front-end
+    wait ``front.wait``, and ``wait``, ``pull``, ``unpack``); without one
+    they go to a timer of the call's own.
 
     ``output``:
       "s16"    — host int16 [C, samples] (dpack wire, device quantize)
@@ -341,6 +339,7 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
         raise ValueError(f"on_error must be 'raise' or 'none', got {on_error!r}")
     dev0 = mesh.devices.reshape(-1)[0]
     fmt = "s16df" if output == "s16" else "f32"
+    timer = DecodeTimer() if timer is None else adapt(timer)
     outs = CorpusOutputs([None] * len(sources))
     stats = {"streams": len(sources), "groups": 0, "shards": 0, "batched": 0,
              "scalar": 0, "failed": 0, "mismatch_fallbacks": 0,
@@ -372,7 +371,7 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
     groups: dict = {}
     with cf.ThreadPoolExecutor(VorbisConfig.default.corpus_workers,
                                thread_name_prefix="vp-front") as pool, \
-            _wall(stats, "front_end"):
+            CallSpans(timer, stats)("front.wait"):
         for i, front in enumerate(pool.map(front_end, sources)):
             if isinstance(front, VorbisError):
                 stats["failed"] += 1  # slot stays None
@@ -402,12 +401,12 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
         shard_items = [[fronts[idxs[j]][2:4] for j in part] for part in parts]
         try:
             sig, souts, totals, lens, events = sharded_chunk_run(
-                synth, shard_items, mesh, fmt, stats)
+                synth, shard_items, mesh, fmt, stats, timer)
         except (ShardMismatch, BatchUnsupported):
             stats["mismatch_fallbacks"] += 1
             for i in sorted(idxs[j] for part in parts for j in part):
                 outs[i] = _per_device(synth, fronts[i][2:4], dev0, fmt,
-                                      output, stats, lambda i=i:
+                                      output, stats, timer, lambda i=i:
                                       scalar_or_failed(i))
             continue
         stats["batched"] += len(idxs)
@@ -417,7 +416,7 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
             stats["shards"] += 1
             dev = mesh.devices.reshape(-1)[k]
             pcm = _land(souts[k], events[k], dev, sig, channels, totals[k],
-                        output, stats)
+                        output, stats, timer)
             souts[k] = None
             c = 0
             for j, ln in zip(part, lens[k]):
@@ -426,7 +425,7 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
     return outs
 
 
-def _per_device(synth, item, dev, fmt, output, stats, scalar):
+def _per_device(synth, item, dev, fmt, output, stats, timer, scalar):
     """One stream through prepare_host and forward on ``dev`` (the
     reference's per-device dispatch after a ShardMismatch); the scalar
     decoder where the batch planner rejects it or it has no audio frame."""
@@ -446,4 +445,5 @@ def _per_device(synth, item, dev, fmt, output, stats, scalar):
     except BatchUnsupported:
         return scalar()
     stats["batched"] += 1
-    return _land(out, event, dev, sig, synth.channels, total, output, stats)
+    return _land(out, event, dev, sig, synth.channels, total, output, stats,
+                 timer)

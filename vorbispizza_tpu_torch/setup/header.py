@@ -13,6 +13,7 @@ from dataclasses import dataclass, field
 
 from ..bitstream import BitReader
 from ..errors import InvalidDataError
+from ..utils import profiling
 from ..utils.bits import ilog
 from .codebook import Codebook
 from .floor import Floor0, Floor1
@@ -140,6 +141,7 @@ def parse_setup_cached(data: bytes, ident: IdentHeader) -> SetupHeader:
         if hit is not None and hit[0] == data:
             return hit[1]
     setup = parse_setup(data, ident)  # expensive; outside the lock
+    profiling.tally("setup")
     with _SETUP_CACHE_LOCK:
         hit = _SETUP_CACHE.get(key)
         if hit is not None and hit[0] == data:
