@@ -28,7 +28,8 @@ from vorbispizza_tpu_torch.utils.profiling import SPAN_STAGES, device_trace
 
 CHUNK_SPANS = {"merge", "prepare", "h2d", "launch", "wait", "pull", "unpack"}
 FRONT_CHILDREN = {"front.scan", "front.headers", "front.plan",
-                  "front.entropy", "front.gather", "front.python"}
+                  "front.native", "front.entropy", "front.gather",
+                  "front.python"}
 
 
 @pytest.fixture(scope="module")

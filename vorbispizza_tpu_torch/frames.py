@@ -25,6 +25,7 @@ exactly the reference's lapping semantics (StreamDecoder.cs:764).
 from __future__ import annotations
 
 import ctypes
+import itertools
 import threading
 from dataclasses import dataclass, field, replace
 
@@ -136,7 +137,8 @@ class FramePlan:
     # frame's packet bytes addressed straight into the Ogg scan's blob, so
     # extraction hands the C++ decoder zero-copy spans (no Packet objects)
     scan: tuple | None = None
-    # preset struct-of-arrays (merged plans); lazily built otherwise
+    # preset struct-of-arrays (merged plans and C++ plans, which hold no
+    # FrameEntry objects); lazily built from ``frames`` otherwise
     soa_cache: FrameSoA | None = None
     # exact per-frame audio bits consumed (set by the native extract path;
     # None when only the Python path ran). Feeds StreamStats with the
@@ -264,12 +266,12 @@ def build_plan_from_scan(
     first_audio: int = 3,
 ) -> FramePlan:
     """Pass 1 straight from the native Ogg scan's raw arrays: the
-    mode-header parse, decodability filter, chain split, and (for the
-    dominant stream shape) the chain layout are all vectorized numpy —
-    no per-packet Python objects or byte copies. Semantics identical to
-    build_plan over a provider (differentially tested); exotic anchoring
-    (start trims, granule gaps/regressions) falls back to the exact
-    per-frame layout loop for that chain.
+    mode-header parse, decodability filter and chain split vectorized in
+    numpy, each chain laid out by the exact per-frame loop. Semantics
+    identical to build_plan over a provider (differentially tested). The
+    front end runs it for the streams whose anchoring (start trims,
+    granule gaps or regressions) the C++ plan, build_plan_native,
+    declines.
 
     Reference hot-path analog: Ogg/PacketProvider.CreatePacket:427-560 +
     StreamDecoder.DecodeNextPacket:696 header reads.
@@ -347,12 +349,8 @@ def build_plan_from_scan(
     base = 0
     for chain in chains:
         segments: list[tuple[int, int]] = []
-        nxt = _lay_out_chain_fast(frames, chain, base, segments)
-        if nxt is None:
-            segments = []
-            nxt = _lay_out_chain(frames, chain, base, segments)
+        base = _lay_out_chain(frames, chain, base, segments)
         chain_segments.append(segments)
-        base = nxt
 
     buckets: dict[BucketKey, list[int]] = {}
     for c in combo[np.sort(np.unique(combo, return_index=True)[1])]:
@@ -372,49 +370,70 @@ def build_plan_from_scan(
     )
 
 
-def _lay_out_chain_fast(frames, chain, base, segments):
-    """Vectorized _lay_out_chain for the dominant stream shape: every
-    granule anchor agrees with the window math except a possible end trim
-    on the final frame. Returns the next base, or None to fall back to the
-    exact per-frame loop (start trims, gaps, mid-stream cuts)."""
-    if not chain:
-        return base
-    k = len(chain)
-    n_ = np.array([frames[i].info.n for i in chain], dtype=np.int64)
-    le = np.array([frames[i].info.left_end for i in chain], dtype=np.int64)
-    re = np.array([frames[i].info.right_end for i in chain], dtype=np.int64)
-    g = np.array([frames[i].granule for i in chain], dtype=np.int64)
-    off0 = base - n_[0] // 2
-    off = off0 + np.concatenate(
-        [[0], np.cumsum(re[:-1] - le[1:])]
+def _mode_tables(setup):
+    """The plan's constants of a setup, memoized on it: (mode_bits, block
+    flag u8 [modes], window table i64 [modes * 4, 4] (n, left_start,
+    left_end, right_end of combo mode*4 + prev*2 + next), the BucketKey of
+    each combo)."""
+    try:
+        return setup._vp_mode_tables
+    except AttributeError:
+        pass
+    infos = [m.window_info(bool(c & 2), bool(c & 1))
+             for m in setup.modes for c in range(4)]
+    tables = (
+        setup.mode_bits,
+        np.array([m.block_flag for m in setup.modes], dtype=np.uint8),
+        np.array([(i.n, i.left_start, i.left_end, i.right_end)
+                  for i in infos], dtype=np.int64),
+        [BucketKey(c >> 2, i.prev_flag, i.next_flag)
+         for c, i in enumerate(infos)],
     )
-    centers = off + n_ // 2
-    end = int(centers[-1])
-    anch = np.nonzero(g >= 0)[0]
-    cut = 0
-    if len(anch):
-        emis = centers - centers[0]
-        implied = int(g[anch[0]] - emis[anch[0]])
-        if implied != 0:
-            return None  # start offset / start trim: exact path
-        exp = emis[anch]
-        if len(anch) > 1 and not np.array_equal(g[anch[:-1]], exp[:-1]):
-            return None  # mid-stream gap or cut: exact path
-        cut = int(exp[-1] - g[anch[-1]])
-        if cut < 0:
-            return None  # forward jump at the final anchor
-        if cut > 0 and anch[-1] != k - 1:
-            return None  # trim not on the final frame
-    keep_end = end - cut
-    if keep_end < base:
-        return None  # cut past the chain start: exact path raises
-    for i, o in zip(chain, off):
-        frames[i].offset = int(o)
-    frames[chain[0]].prime = True
-    frames[chain[-1]].final = True
-    if keep_end > base:
-        segments.append((base, keep_end))
-    return end
+    setup._vp_mode_tables = tables
+    return tables
+
+
+def build_plan_native(
+    blob: np.ndarray,
+    offs: np.ndarray,
+    granules: np.ndarray,
+    flags: np.ndarray,
+    setup,
+    first_audio: int = 3,
+) -> FramePlan | None:
+    """build_plan_from_scan in the C++ front end (native.plan_scan, span
+    ``front.native``, without the interpreter lock), wrapped into a
+    FramePlan (span ``front.plan``) that carries only the struct of
+    arrays: no FrameEntry objects. The C++ lays a chain out from the
+    window math alone where every granule anchor agrees with it, bar an
+    end trim on the final frame; None where a chain needs the exact
+    per-frame layout (start trims or offsets, granule gaps, forward jumps,
+    a trim before the final frame): build_plan_from_scan plans such a
+    stream."""
+    from . import native
+
+    mode_bits, block_flag, win, keys = _mode_tables(setup)
+    with profiling.sub("front.native"):
+        p = native.plan_scan(blob, offs, granules, flags, first_audio,
+                             mode_bits, block_flag, win)
+    if p is None:
+        return None
+    with profiling.sub("front.plan"):
+        bounds = p["chain"].tolist()
+        perm, bstart = p["perm"], p["bstart"].tolist()
+        return FramePlan(
+            frames=[],
+            total_len=p["total_len"],
+            chains=[list(range(a, b)) for a, b in zip(bounds, bounds[1:])],
+            chain_segments=[[(lo, hi)] if hi > lo else []
+                            for lo, hi in p["seg"].tolist()],
+            buckets={keys[c]: perm[a:b].tolist() for c, a, b in
+                     zip(p["bcombo"].tolist(), bstart, bstart[1:])},
+            scan=(blob, p["start"], p["end"]),
+            soa_cache=FrameSoA(p["n"], p["left_start"], p["left_end"],
+                               p["right_end"], p["offset"], p["prime"],
+                               p["final"]),
+        )
 
 
 def _lay_out_chain(
@@ -664,10 +683,10 @@ def extract_batch(
     decode otherwise. Both paths produce identical tensors (double
     accumulation, float32 output). ``use_native=None`` follows
     VorbisConfig.default.use_native_frontend. Spans of the calling
-    thread's task (utils/profiling.bound): the native call
-    ``front.entropy`` (its threads' CPU as ``native_cpu_ns``) and the
-    numpy after it ``front.gather``, or the Python decode
-    ``front.python``."""
+    thread's task (utils/profiling.bind): the native call
+    ``front.entropy`` (its threads' CPU as ``native_cpu_ns``), the C++
+    gather after it ``front.native`` and the Python around that
+    ``front.gather``, or the Python decode ``front.python``."""
     from .config import VorbisConfig
 
     if use_native is None:
@@ -697,21 +716,6 @@ def _sym_layout_cached(setup, ident):
 
         setup._sym_layout = symbol_layout(setup, ident)
         return setup._sym_layout
-
-
-def _slice_gather(flat: np.ndarray, starts: np.ndarray, lens: np.ndarray):
-    """Concatenate flat[starts[i] : starts[i]+lens[i]] for all i —
-    vectorized (repeat/cumsum), no per-slice Python loop."""
-    total = int(lens.sum())
-    if total == 0:
-        return np.empty(0, dtype=flat.dtype)
-    cum = np.cumsum(lens) - lens
-    idx = (
-        np.arange(total, dtype=np.int64)
-        - np.repeat(cum, lens)
-        + np.repeat(starts, lens)
-    )
-    return flat[idx]
 
 
 def _bucket_groups(mapping, channels: int):
@@ -768,109 +772,172 @@ def _extract_batch_native(
             )
         if sp is not None:
             sp.counters["native_cpu_ns"] = cpu.value
-    with profiling.sub("front.gather"):
-        return _gather_buckets(plan, setup, channels, dec, sym_layout)
+    return _gather_buckets(plan, setup, channels, dec, sym_layout)
+
+
+def _gather_tables(setup, channels: int, sym_layout):
+    """Per mode of a setup, memoized on it: each floor group's template
+    (floor, channels, type, width: posts or order) and first channel in
+    ``chs`` (i64, every group's channels after each other); with a symbol
+    layout, each mode's group count and nsym row (0 past its groups)."""
+    cache = getattr(setup, "_vp_gather_tables", None)
+    if cache is None:
+        cache = setup._vp_gather_tables = {}
+    key = (channels, id(sym_layout))
+    hit = cache.get(key)
+    if hit is not None and hit[0] is sym_layout:
+        return hit[1]
+    floors, chs = [], []
+    for mode in setup.modes:
+        groups = []
+        for g in _bucket_groups(setup.mappings[mode.mapping_idx], channels):
+            fl = g.floor
+            width = fl.n_posts if fl.floor_type == 1 else fl.order
+            groups.append((fl, g.channels, fl.floor_type, width, len(chs)))
+            chs += g.channels
+        floors.append(groups)
+    sym = None
+    if sym_layout is not None:
+        n_modes, n_groups = len(setup.modes), sym_layout.n_groups
+        counts = np.zeros(n_modes, dtype=np.int64)
+        nsym = np.zeros((n_modes, n_groups), dtype=np.int64)
+        for m, mode in enumerate(setup.modes):
+            gs = sym_layout.groups_per_mapping[mode.mapping_idx]
+            counts[m] = len(gs)
+            nsym[m, : len(gs)] = [g.nsym for g in gs]
+        sym = (counts, nsym)
+    tables = (floors, np.asarray(chs, dtype=np.int64), sym)
+    cache[key] = (sym_layout, tables)
+    return tables
 
 
 def _gather_buckets(plan: FramePlan, setup, channels: int, dec,
                     sym_layout) -> list[BucketBatch]:
-    """The native decode's dense tensors -> per-bucket arrays."""
-    if sym_layout is not None:
-        # per-(packet, group) stream starts within each packet's region
-        counts = dec["sym_counts"]
-        goff = np.zeros_like(counts)
-        np.cumsum(counts[:, :-1], axis=1, out=goff[:, 1:])
-        syms_flat = dec["syms"].reshape(-1)
-        slots_flat = dec["slots"].reshape(-1)
-    meta = dec["meta"]
-    for i, fr in enumerate(plan.frames):
-        if meta[i, 0] != 1 or meta[i, 1] != fr.mode_idx:
-            raise RuntimeError(
-                f"native front end disagrees with plan at frame {i}"
-            )
-    plan.audio_bits = meta[:, 4].astype(np.int64)
+    """The native decode's per-frame outputs -> per-bucket arrays. The
+    gather runs in C++ (native.gather_buckets, span ``front.native``):
+    every bucket array lies in one output buffer of its kind, bucket after
+    bucket. The Python around it (spans ``front.gather``) sizes those
+    buffers and wraps views of them into the buckets; value-transport
+    residues stay a numpy slice."""
+    from . import native
 
-    sid = setup_sid(setup)
-    out: list[BucketBatch] = []
-    for key, indices in plan.buckets.items():
-        mode = setup.modes[key.mode_idx]
-        mapping = setup.mappings[mode.mapping_idx]
-        key = replace(key, sid=sid)
-        n = mode.n
-        half = n // 2
-        idx = np.asarray(indices, dtype=np.int64)
-
-        residues = None
+    with profiling.sub("front.gather"):
+        keys = list(plan.buckets)
+        sizes = [len(v) for v in plan.buckets.values()]
+        F = plan.n_frames
+        perm = np.fromiter(
+            itertools.chain.from_iterable(plan.buckets.values()),
+            dtype=np.int64, count=sum(sizes))
+        bstart = np.zeros(len(keys) + 1, dtype=np.int64)
+        np.cumsum(sizes, out=bstart[1:])
+        bmode = np.array([k.mode_idx for k in keys], dtype=np.int64)
+        floors, chs, sym_t = _gather_tables(setup, channels, sym_layout)
+        # the floor groups' blocks: [F_k, nc, width] and [F_k, nc]
+        jobs, groups_of = [], []
+        at = [0, 0]  # elements of the floor0 and the floor1 outputs
+        uat = 0
+        for k, (key, fk) in enumerate(zip(keys, sizes)):
+            groups = []
+            for fl, g_chs, ftype, width, ch_at in floors[key.mode_idx]:
+                nc = len(g_chs)
+                jobs.append((k, ftype, width, ch_at, nc, at[ftype], uat))
+                groups.append((FloorGroup(floor=fl, channels=list(g_chs)),
+                               ftype, at[ftype], uat, (fk, nc, width)))
+                at[ftype] += fk * nc * width
+                uat += fk * nc
+            groups_of.append(groups)
+        jobs = np.array(jobs, dtype=np.int64).reshape(-1, 7)
+        out = {
+            "offsets": np.empty(F, dtype=np.int32),
+            "prime": np.empty(F, dtype=bool),
+            "final": np.empty(F, dtype=bool),
+            "audio_bits": np.empty(F, dtype=np.int64),
+            "posts": np.empty(at[1], dtype=np.int32),
+            "step2": np.empty(at[1], dtype=bool),
+            "ys": np.empty(at[1], dtype=np.int16),
+            "f0c": np.empty(at[0], dtype=np.float32),
+            "used": np.empty(uat, dtype=bool),
+            "f0a": np.empty(uat if at[0] else 0, dtype=np.int32),
+        }
         sym = None
         if sym_layout is not None:
-            groups_m = sym_layout.groups_per_mapping[mode.mapping_idx]
-            sym_cap = sym_layout.sym_cap
-            G = len(groups_m)
-            cnt = counts[idx, :G]
-            nsyms = np.asarray([g.nsym for g in groups_m], dtype=np.int64)
-            if np.any(cnt % nsyms[None, :]):
-                raise RuntimeError("symbol stream not partition-aligned")
-            pc = (cnt // nsyms[None, :]).astype(np.int32)  # [F, G]
-            # slot streams flush group-major with their own cursor
-            # (frontend.cpp): offsets are the per-packet exclusive cumsum
-            poff = np.zeros_like(pc)
-            np.cumsum(pc[:, :-1], axis=1, out=poff[:, 1:])
-            streams = []
-            slot_streams = []
-            for gi in range(G):
-                starts = idx * sym_cap + goff[idx, gi]
-                lens = cnt[:, gi].astype(np.int64)
-                streams.append(_slice_gather(syms_flat, starts, lens))
-                pstarts = idx * sym_cap + poff[:, gi].astype(np.int64)
-                slot_streams.append(
-                    _slice_gather(
-                        slots_flat, pstarts, pc[:, gi].astype(np.int64)
-                    )
-                )
-            sym = SymBucket(
-                layout=sym_layout,
-                groups=groups_m,
-                syms=streams,
-                slots=slot_streams,
-                part_counts=pc,
-            )
-        else:
-            residues = np.ascontiguousarray(dec["residues"][idx][:, :, :half])
-
-        groups = _bucket_groups(mapping, channels)
-        for g in groups:
-            chs = np.asarray(g.channels, dtype=np.int64)
-            g.used = dec["used"][idx][:, chs].astype(bool)
-            if g.floor.floor_type == 1:
-                g.posts = np.ascontiguousarray(
-                    dec["posts"][idx][:, chs, : g.floor.n_posts]
-                )
-                g.step2 = dec["step2"][idx][:, chs, : g.floor.n_posts].astype(bool)
-                g.ys = np.ascontiguousarray(
-                    dec["ys"][idx][:, chs, : g.floor.n_posts]
-                )
+            counts, nsym = sym_t
+            sym = (counts[bmode], nsym[bmode])
+            cap = int(dec["sym_counts"].sum())
+            out["pc"] = np.empty(int(sym[0] @ np.asarray(sizes, np.int64)),
+                                 dtype=np.int32)
+            out["syms"] = np.empty(cap, dtype=np.uint16)
+            out["slots"] = np.empty(cap, dtype=np.uint16)
+            out["lens"] = np.zeros((len(keys), nsym.shape[1], 2),
+                                   dtype=np.int64)
+        s = plan.soa()
+    with profiling.sub("front.native"):
+        native.gather_buckets(dec, perm, bstart, bmode, s.offset, s.prime,
+                              s.final, jobs, chs, out, sym)
+    with profiling.sub("front.gather"):
+        plan.audio_bits = out["audio_bits"]
+        if sym is not None:
+            # each group stream's [start, end) in the syms and slots outputs
+            lens = out["lens"].reshape(-1, 2)
+            ends = np.cumsum(lens, axis=0)
+            spans = np.concatenate([ends - lens, ends], axis=1).tolist()
+            n_groups = out["lens"].shape[1]
+        sid = setup_sid(setup)
+        bounds = bstart.tolist()
+        pc_at = 0
+        batches: list[BucketBatch] = []
+        for k, key in enumerate(keys):
+            mode = setup.modes[key.mode_idx]
+            a, b = bounds[k], bounds[k + 1]
+            fk = b - a
+            idx = perm[a:b]
+            groups = []
+            for g, ftype, gat, guat, shape in groups_of[k]:
+                size = shape[0] * shape[1]
+                g.used = out["used"][guat : guat + size].reshape(shape[:2])
+                end = gat + size * shape[2]
+                if ftype == 1:
+                    g.posts = out["posts"][gat:end].reshape(shape)
+                    g.step2 = out["step2"][gat:end].reshape(shape)
+                    g.ys = out["ys"][gat:end].reshape(shape)
+                else:
+                    g.coefficients = out["f0c"][gat:end].reshape(shape)
+                    g.amplitude = out["f0a"][guat : guat + size].reshape(
+                        shape[:2])
+                groups.append(g)
+            residues = sym_b = None
+            if sym is None:
+                residues = np.ascontiguousarray(
+                    dec["residues"][idx][:, :, : mode.n // 2])
             else:
-                g.coefficients = np.ascontiguousarray(
-                    dec["f0_coeffs"][idx][:, chs, : g.floor.order]
+                G = int(sym[0][k])
+                streams, slot_streams = [], []
+                for s0, p0, s1, p1 in spans[k * n_groups : k * n_groups + G]:
+                    streams.append(out["syms"][s0:s1])
+                    slot_streams.append(out["slots"][p0:p1])
+                sym_b = SymBucket(
+                    layout=sym_layout,
+                    groups=sym_layout.groups_per_mapping[mode.mapping_idx],
+                    syms=streams,
+                    slots=slot_streams,
+                    part_counts=out["pc"][pc_at : pc_at + fk * G].reshape(
+                        fk, G),
                 )
-                g.amplitude = np.ascontiguousarray(dec["f0_amp"][idx][:, chs])
-
-        out.append(
-            BucketBatch(
-                key=key,
-                n=n,
-                frame_indices=idx,
-                offsets=np.asarray(
-                    [plan.frames[i].offset for i in indices], dtype=np.int32
-                ),
-                prime=np.asarray([plan.frames[i].prime for i in indices], dtype=bool),
-                final=np.asarray([plan.frames[i].final for i in indices], dtype=bool),
-                residues=residues,
-                floor_groups=groups,
-                sym=sym,
+                pc_at += fk * G
+            batches.append(
+                BucketBatch(
+                    key=replace(key, sid=sid),
+                    n=mode.n,
+                    frame_indices=idx,
+                    offsets=out["offsets"][a:b],
+                    prime=out["prime"][a:b],
+                    final=out["final"][a:b],
+                    residues=residues,
+                    floor_groups=groups,
+                    sym=sym_b,
+                )
             )
-        )
-    return out
+    return batches
 
 
 def _extract_batch_python(plan: FramePlan, setup, channels: int) -> list[BucketBatch]:

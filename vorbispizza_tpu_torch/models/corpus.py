@@ -64,6 +64,7 @@ from ..frames import (
     SymBucket,
     build_plan,
     build_plan_from_scan,
+    build_plan_native,
     extract_batch,
 )
 from ..ogg.container import OggContainer
@@ -107,11 +108,14 @@ def _synthesizer_for(setup, channels: int) -> BatchSynthesizer:
 
 
 def _front_end_native(data: bytes):
-    """All-native front end: C++ Ogg scan -> raw arrays -> vectorized plan
-    -> C++ entropy decode. Returns None when the native path cannot model
-    the stream (Python path instead). Spans of the thread's task: the C++
-    scan ``front.scan``, the header parses ``front.headers``, the plan
-    ``front.plan``; extract_batch's after them."""
+    """All-native front end: C++ Ogg scan -> raw arrays -> C++ plan ->
+    C++ entropy decode -> C++ gather; the numpy plan where a chain needs
+    the exact layout (build_plan_native declines). Such a stream counts in
+    ``front_native`` when the C++ planned it. Returns None when the native
+    path cannot model the stream (Python path instead). Spans of the
+    thread's task: the C++ scan ``front.scan``, the header parses
+    ``front.headers``, the C++ plan ``front.native`` and its wrapping or
+    the numpy plan ``front.plan``; extract_batch's after them."""
     if not VorbisConfig.default.use_native_frontend or not native.available():
         return None
     with profiling.sub("front.scan"):
@@ -125,13 +129,19 @@ def _front_end_native(data: bytes):
             parse_comments(blob[offs[1] : offs[2]].tobytes())
             setup = parse_setup_cached(blob[offs[2] : offs[3]].tobytes(),
                                        ident)
-        with profiling.sub("front.plan"):
-            plan = build_plan_from_scan(blob, offs, granules, flags, setup)
+        plan = build_plan_native(blob, offs, granules, flags, setup)
+        in_cpp = plan is not None
+        if not in_cpp:
+            with profiling.sub("front.plan"):
+                plan = build_plan_from_scan(blob, offs, granules, flags,
+                                            setup)
     except BatchUnsupported:
         raise
     except Exception:
         return None  # headers the scanner mis-modeled: use the full path
     buckets = extract_batch(plan, setup, ident.channels, ident=ident)
+    if in_cpp:
+        profiling.tally("front_native")
     return setup, ident.channels, plan, buckets
 
 
@@ -303,7 +313,8 @@ class CorpusOutputs(list):
     and copied back), ``builds`` (the call's table builds by kind,
     utils/profiling.BUILDS: setup parses, synthesizers, wire layouts, K1
     tables, bucket tables; 0 when earlier calls built them all),
-    ``front_python`` (streams the native front end could not model) and
+    ``front_python`` (streams the native front end could not model),
+    ``front_native`` (streams whose plan and gather ran in C++) and
     ``stage_s``: host wall seconds per stage of STAGES, each the summed
     walls of its spans (utils/profiling.SPAN_STAGES). The stages run on
     three kinds of thread at once, so their walls overlap and need not
@@ -435,10 +446,12 @@ def decode_corpus(
     .pull_wait, .pull0, .pull_done; and spans, each with its thread's CPU
     time: the caller's ``call`` and ``front.wait`` (key s<i>, stream i);
     a front-end worker's ``front`` (s<i>) and within it ``front.scan``,
-    ``front.headers``, ``front.plan``, ``front.entropy`` (counter
-    ``native_cpu_ns``: the C++ decode's threads) and ``front.gather``, or
-    ``front.python``; the dispatch thread's ``merge``, ``prepare``,
-    ``h2d``, ``launch`` and a collector's ``wait``, ``pull``, ``unpack``
+    ``front.headers``, ``front.native`` (the C++ plan and gather, without
+    the interpreter lock), ``front.plan``, ``front.entropy`` (counter
+    ``native_cpu_ns``: the C++ decode's threads) and ``front.gather``
+    (the Python wrapping the plan and the buckets), or ``front.python``;
+    the dispatch thread's ``merge``, ``prepare``, ``h2d``, ``launch`` and
+    a collector's ``wait``, ``pull``, ``unpack``
     (key c<k>, chunk k; cause the s<i> whose front end closed the chunk)).
     Without a timer no span is made and no thread clock read. A timer
     lacking ``span`` or ``mark`` is wrapped (profiling.adapt): its
@@ -467,7 +480,7 @@ def decode_corpus(
     stats = {"streams": len(sources), "batched": 0, "scalar": 0, "failed": 0,
              "chunks": 0, "h2d_bytes": 0, "d2h_bytes": 0,
              "builds": dict.fromkeys(profiling.BUILDS, 0), "front_python": 0,
-             "stage_s": dict.fromkeys(STAGES, 0.0)}
+             "front_native": 0, "stage_s": dict.fromkeys(STAGES, 0.0)}
     outs.stats = stats
     lock = threading.Lock()  # stats: the three kinds of thread update it
     pull_lock = threading.Lock()  # one pull at a time: the link is one pipe

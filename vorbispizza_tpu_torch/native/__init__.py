@@ -120,6 +120,25 @@ def _load():
             C.c_int,                          # n_threads
             C.POINTER(C.c_int64),             # threads' CPU ns (nullable)
         ]
+        # plan and gather: every array by its address (c_void_p)
+        ptr, i64 = C.c_void_p, C.c_int64
+        lib.vp_plan_scan.restype = C.c_int
+        lib.vp_plan_scan.argtypes = [
+            ptr, i64, ptr, ptr, ptr,          # blob, offs, granules, flags
+            i64, i64, i64, i64, ptr, ptr,     # packets .. block_flag, win
+            *[ptr] * 9,                       # per frame
+            ptr, ptr, ptr, ptr, ptr, ptr,     # perm .. counts
+        ]
+        lib.vp_gather_buckets.restype = C.c_int
+        lib.vp_gather_buckets.argtypes = [
+            i64, i64, ptr, ptr, ptr, ptr, i64,  # frames .. buckets
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # plan in, per bucket out
+            i64, ptr, ptr,                      # floor jobs
+            ptr, ptr, ptr, ptr, ptr, i64, ptr,  # dense floors
+            ptr, ptr, ptr, ptr, ptr, ptr,       # floor outputs
+            ptr, ptr, ptr, i64, i64, ptr, ptr,  # symbols in
+            ptr, ptr, ptr, i64, ptr, ptr,       # symbols out, bad frame
+        ]
         _lib = lib
         return _lib
 
@@ -430,3 +449,147 @@ def decode_packet_spans_sym(
         "sym_counts": sym_counts,
         "pair_counts": pair_counts,
     }
+
+
+def _addr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def plan_scan(blob, offs, granules, flags, first_audio, mode_bits,
+              block_flag, win):
+    """Pass 1 in C++ (frontend.cpp vp_plan_scan) over scan_ogg_arrays'
+    arrays; ``block_flag`` u8 [modes] and ``win`` i64 [modes * 4, 4] (n,
+    left_start, left_end, right_end of combo mode*4 + prev*2 + next).
+
+    Returns a dict: ``start``, ``end`` (each frame's packet span in
+    ``blob``), ``n``, ``left_start``, ``left_end``, ``right_end``,
+    ``offset`` (i64 [F]), ``prime``, ``final`` (bool [F]), ``perm`` (i64
+    [F], the frames bucket after bucket), ``bstart`` (i64 [buckets + 1]),
+    ``bcombo`` (i32 [buckets]), ``chain`` (i64 [chains + 1], chain k is
+    frames chain[k]:chain[k+1]), ``seg`` (i64 [chains, 2], chain k's kept
+    range, none where empty) and ``total_len``. None where a chain needs
+    the exact per-frame layout. Raises InvalidDataError for an audio
+    packet's mode index out of bounds."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native front end unavailable: {_build_error}")
+    blob = np.ascontiguousarray(blob, dtype=np.uint8)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    granules = np.ascontiguousarray(granules, dtype=np.int64)
+    flags = np.ascontiguousarray(flags, dtype=np.uint8)
+    block_flag = np.ascontiguousarray(block_flag, dtype=np.uint8)
+    win = np.ascontiguousarray(win, dtype=np.int64)
+    n_modes = len(block_flag)
+    n_pkts = len(granules)
+    if (len(offs) != n_pkts + 1 or len(flags) != n_pkts
+            or win.shape != (4 * n_modes, 4)):
+        raise ValueError("plan_scan: mismatched scan or mode tables")
+    P = max(n_pkts - first_audio, 0)
+    cap = max(P, 1)
+    rows = np.empty((8, cap), dtype=np.int64)  # start .. offset, perm
+    marks = np.empty((2, cap), dtype=bool)     # prime, final
+    chain = np.empty(cap + 1, dtype=np.int64)
+    seg = np.empty((cap, 2), dtype=np.int64)
+    bstart = np.empty(4 * n_modes + 1, dtype=np.int64)
+    bcombo = np.empty(4 * n_modes, dtype=np.int32)
+    counts = np.empty(4, dtype=np.int64)
+    r0, m0, row = _addr(rows), _addr(marks), 8 * cap
+    rc = lib.vp_plan_scan(
+        _addr(blob), blob.nbytes, _addr(offs), _addr(granules),
+        _addr(flags), n_pkts, first_audio, mode_bits, n_modes,
+        _addr(block_flag), _addr(win),
+        *[r0 + i * row for i in range(7)], m0, m0 + cap,
+        r0 + 7 * row, _addr(bstart), _addr(bcombo), _addr(chain),
+        _addr(seg), _addr(counts),
+    )
+    if rc == 1:
+        return None
+    if rc == -1:
+        from ..errors import InvalidDataError
+
+        raise InvalidDataError("mode index out of bounds")
+    if rc != 0:
+        raise RuntimeError(f"vp_plan_scan failed: {rc}")
+    F, n_chains, nb, total_len = counts.tolist()
+    start, end, n, ls, le, re, off, perm = rows[:, :F]
+    return {
+        "start": start, "end": end, "n": n, "left_start": ls,
+        "left_end": le, "right_end": re, "offset": off,
+        "prime": marks[0, :F], "final": marks[1, :F], "perm": perm,
+        "bstart": bstart[: nb + 1], "bcombo": bcombo[:nb],
+        "chain": chain[: n_chains + 1], "seg": seg[:n_chains],
+        "total_len": total_len,
+    }
+
+
+def gather_buckets(dec, perm, bstart, bmode, offset, prime, final, jobs,
+                   chs, out, sym=None):
+    """The per-bucket gather in C++ (frontend.cpp vp_gather_buckets) of a
+    decode_packet_spans[_sym] result ``dec``: bucket k is frames
+    perm[bstart[k]:bstart[k+1]] of mode bmode[k]; ``offset``, ``prime``,
+    ``final`` are the plan's per-frame arrays. ``jobs`` i64 [J, 7] and
+    ``chs`` describe the floor groups (see vp_gather_buckets). ``out``
+    holds the caller's output arrays: ``offsets`` i32, ``prime``,
+    ``final`` bool (each [F], bucket after bucket), ``audio_bits`` i64
+    [F], ``posts`` i32, ``step2`` bool, ``ys`` i16, ``f0c`` f32, ``used``
+    bool, ``f0a`` i32; with ``sym`` = (groups i64 [buckets], nsym i64
+    [buckets, n_groups]) also ``pc`` i32, ``syms``, ``slots`` u16 and
+    ``lens`` i64 [buckets, n_groups, 2], which gets each group stream's
+    length. Raises RuntimeError where the decode disagrees with the plan
+    or a symbol stream is not partition-aligned."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native front end unavailable: {_build_error}")
+    F, channels = dec["used"].shape
+    bstart = np.ascontiguousarray(bstart, dtype=np.int64)
+    n_buckets = len(bstart) - 1
+    args = [perm, bmode, offset, prime, final, jobs, chs]
+    if not (len(perm) == bstart[-1] <= F == len(offset) == len(prime)
+            == len(final) == len(out["audio_bits"]) and len(bmode)
+            == n_buckets and jobs.shape[1:] == (7,)):
+        raise ValueError("gather_buckets: mismatched plan arrays")
+    for a, dt in zip(args, (np.int64, np.int64, np.int64, np.bool_,
+                            np.bool_, np.int64, np.int64)):
+        if a.dtype != dt:
+            raise ValueError(f"gather_buckets: {a.dtype} where {dt} is due")
+    for a in (*args, *dec.values(), *out.values()):
+        if not a.flags.c_contiguous:
+            raise ValueError("gather_buckets: arrays must be contiguous")
+    if sym is None:
+        syms = slots = counts = groups = nsym = None
+        sym_cap = n_groups = cap = 0
+    else:
+        groups, nsym = sym
+        syms, slots, counts = dec["syms"], dec["slots"], dec["sym_counts"]
+        sym_cap, n_groups = syms.shape[1], counts.shape[1]
+        cap = min(len(out["syms"]), len(out["slots"]))
+        if nsym.shape != (n_buckets, n_groups):
+            raise ValueError("gather_buckets: mismatched symbol tables")
+
+    def addr(a):
+        return None if a is None else a.ctypes.data
+
+    bad = np.zeros(1, dtype=np.int64)
+    rc = lib.vp_gather_buckets(
+        F, channels, addr(dec["meta"]), addr(perm), addr(bstart),
+        addr(bmode), n_buckets, addr(offset), addr(prime), addr(final),
+        addr(out["offsets"]), addr(out["prime"]), addr(out["final"]),
+        addr(out["audio_bits"]), len(jobs), addr(jobs), addr(chs),
+        addr(dec["posts"]), addr(dec["step2"]), addr(dec["ys"]),
+        addr(dec["used"]), addr(dec["f0_coeffs"]),
+        dec["f0_coeffs"].shape[2], addr(dec["f0_amp"]),
+        addr(out["posts"]), addr(out["step2"]), addr(out["ys"]),
+        addr(out["used"]), addr(out["f0c"]), addr(out["f0a"]),
+        addr(syms), addr(slots), addr(counts), sym_cap, n_groups,
+        addr(groups), addr(nsym), addr(out.get("pc")), addr(out.get("syms")),
+        addr(out.get("slots")), cap, addr(out.get("lens")), addr(bad),
+    )
+    if rc == 1:
+        raise RuntimeError(
+            f"native front end disagrees with plan at frame {int(bad[0])}")
+    if rc == 2:
+        raise RuntimeError("symbol stream not partition-aligned")
+    if rc == 4:
+        raise OverflowError("frame offset out of int32 range")
+    if rc != 0:
+        raise RuntimeError(f"vp_gather_buckets failed: {rc}")

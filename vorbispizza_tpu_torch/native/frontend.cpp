@@ -15,6 +15,7 @@
 //
 // Build: g++ -O3 -march=native -shared -fPIC -pthread (native/__init__.py).
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cstring>
@@ -1354,6 +1355,315 @@ int vp_unpack_pcm(const uint8_t* data, int64_t nbytes, const uint8_t* widx,
         for (auto& th : threads) th.join();
     }
     return err.load();
+}
+
+}  // extern "C"
+
+// ============================================================ plan and gather
+//
+// Pass 1 of the batch front end (its numpy twin: frames.py
+// build_plan_from_scan) from the Ogg scan's arrays, and the per-bucket
+// gather after pass 2 (frames.py _gather_buckets calls it). Both run on
+// the calling thread; through ctypes, without the interpreter lock.
+
+namespace {
+
+// int64 arithmetic that wraps as numpy's does (no signed overflow)
+inline int64_t wadd(int64_t a, int64_t b) {
+    return (int64_t)((uint64_t)a + (uint64_t)b);
+}
+inline int64_t wsub(int64_t a, int64_t b) {
+    return (int64_t)((uint64_t)a - (uint64_t)b);
+}
+
+// One resync-free chain, frames [a, b), for the dominant stream shape:
+// every granule anchor agrees with the window math bar an end trim on the
+// final frame. Offsets, prime/final and the kept range (seg[0] == seg[1]:
+// none); false where the granules ask for the exact per-frame layout
+// (frames.py _lay_out_chain: start trims or offsets, gaps, forward jumps,
+// a trim before the final frame, a cut past the chain start).
+bool lay_out_chain_fast(int64_t a, int64_t b, int64_t& base,
+                        const int64_t* n, const int64_t* le, const int64_t* re,
+                        const int64_t* g, int64_t* off, uint8_t* prime,
+                        uint8_t* fin, int64_t* seg) {
+    off[a] = wsub(base, n[a] / 2);
+    for (int64_t j = a + 1; j < b; j++)
+        off[j] = wadd(off[j - 1], wsub(re[j - 1], le[j]));
+    const int64_t c0 = wadd(off[a], n[a] / 2);
+    const int64_t end = wadd(off[b - 1], n[b - 1] / 2);
+    int64_t last = -1, cut = 0;
+    for (int64_t j = a; j < b; j++) {
+        if (g[j] < 0) continue;
+        int64_t emis = wsub(wadd(off[j], n[j] / 2), c0);
+        // the first anchor must imply a start at 0; every anchor but the
+        // last must sit where the window math puts it
+        if (last < 0 && g[j] != emis) return false;
+        if (last >= 0 && cut != 0) return false;
+        cut = wsub(emis, g[j]);
+        last = j;
+    }
+    if (cut < 0) return false;                    // forward jump at the end
+    if (cut > 0 && last != b - 1) return false;   // trim not on the final frame
+    int64_t keep_end = wsub(end, cut);
+    if (keep_end < base) return false;            // cut past the chain start
+    for (int64_t j = a; j < b; j++) prime[j] = fin[j] = 0;
+    prime[a] = 1;
+    fin[b - 1] = 1;
+    seg[0] = base;
+    seg[1] = keep_end > base ? keep_end : base;
+    base = end;
+    return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Pass 1 from the Ogg scan's arrays (packet i: blob[offs[i]:offs[i+1]],
+// granules[i], flags[i] bit0 resync, bit1 EOS): the cut after the first
+// EOS packet, the mode-header parse, the decodability filter, the chain
+// split at resync packets, the fast chain layout and the buckets in order
+// of first appearance. win[combo*4 ..] = n, left_start, left_end,
+// right_end of combo = mode*4 + prev*2 + next.
+//
+// Per frame (capacity n_pkts - first_audio): its packet span, window
+// geometry, offset, prime and final; perm: the frames bucket after bucket,
+// in frame order within one, bucket k being perm[bstart[k]:bstart[k+1]]
+// and its combo bcombo[k] (capacity n_modes*4); chains [chain[k],
+// chain[k+1]) with kept range seg[2k], seg[2k+1]; counts = frames,
+// chains, buckets, total_len.
+//
+// Returns 0, 1 where a chain needs the exact layout (the caller plans the
+// stream in numpy), -1 for an audio packet's mode index out of bounds,
+// -2 for bad arguments.
+int vp_plan_scan(const uint8_t* blob, int64_t blob_len, const int64_t* offs,
+                 const int64_t* granules, const uint8_t* flags,
+                 int64_t n_pkts, int64_t first_audio, int64_t mode_bits,
+                 int64_t n_modes, const uint8_t* block_flag,
+                 const int64_t* win, int64_t* f_start, int64_t* f_end,
+                 int64_t* f_n, int64_t* f_ls, int64_t* f_le, int64_t* f_re,
+                 int64_t* f_off, uint8_t* f_prime, uint8_t* f_final,
+                 int64_t* perm, int64_t* bstart, int32_t* bcombo,
+                 int64_t* chain, int64_t* seg, int64_t* counts) {
+    if (mode_bits < 0 || mode_bits > 8 || n_modes < 1 || n_modes > 64)
+        return -2;
+    int64_t P = n_pkts - first_audio;
+    if (P < 0) P = 0;
+    for (int64_t i = 0; i < P; i++)
+        if (flags[first_audio + i] & 2) { P = i + 1; break; }
+    const int64_t mask = ((int64_t)1 << mode_bits) - 1;
+    std::vector<int32_t> combo((size_t)P);
+    std::vector<int64_t> g((size_t)P);
+    int64_t F = 0, n_chains = 0;
+    bool resync = false;
+    for (int64_t i = 0; i < P; i++) {
+        const int64_t p = first_audio + i;
+        if (flags[p] & 1) resync = true;
+        const int64_t s = offs[p], len = offs[p + 1] - offs[p];
+        if (len <= 0) continue;
+        if (s < 0 || s + len > blob_len) return -2;
+        const int64_t v = blob[s] | (len > 1 ? blob[s + 1] << 8 : 0);
+        if (v & 1) continue;  // not an audio packet
+        const int64_t m = (v >> 1) & mask;
+        if (m >= n_modes) return -1;
+        if (1 + mode_bits + (block_flag[m] ? 2 : 0) > 8 * len)
+            continue;  // window flags truncated: undecodable
+        int64_t pf = 0, nf = 0;
+        if (block_flag[m]) {
+            pf = (v >> (1 + mode_bits)) & 1;
+            nf = (v >> (2 + mode_bits)) & 1;
+        }
+        if (F == 0 || resync) chain[n_chains++] = F;
+        resync = false;
+        const int32_t c = (int32_t)(m * 4 + pf * 2 + nf);
+        combo[(size_t)F] = c;
+        g[(size_t)F] = granules[p];
+        f_start[F] = s;
+        f_end[F] = s + len;
+        f_n[F] = win[c * 4];
+        f_ls[F] = win[c * 4 + 1];
+        f_le[F] = win[c * 4 + 2];
+        f_re[F] = win[c * 4 + 3];
+        F++;
+    }
+    chain[n_chains] = F;
+
+    int64_t base = 0;
+    for (int64_t k = 0; k < n_chains; k++) {
+        if (!lay_out_chain_fast(chain[k], chain[k + 1], base, f_n, f_le,
+                                f_re, g.data(), f_off, f_prime, f_final,
+                                seg + 2 * k))
+            return 1;
+    }
+
+    // buckets in order of first appearance; frames in order within each
+    std::vector<int32_t> bucket_of((size_t)n_modes * 4, -1);
+    std::vector<int64_t> fill;
+    int64_t nb = 0;
+    for (int64_t f = 0; f < F; f++) {
+        int32_t& b = bucket_of[(size_t)combo[(size_t)f]];
+        if (b < 0) {
+            b = (int32_t)nb++;
+            bcombo[b] = combo[(size_t)f];
+            fill.push_back(0);
+        }
+        fill[(size_t)b]++;
+    }
+    bstart[0] = 0;
+    for (int64_t b = 0; b < nb; b++) {
+        bstart[b + 1] = bstart[b] + fill[(size_t)b];
+        fill[(size_t)b] = bstart[b];
+    }
+    for (int64_t f = 0; f < F; f++)
+        perm[fill[(size_t)bucket_of[(size_t)combo[(size_t)f]]]++] = f;
+
+    counts[0] = F;
+    counts[1] = n_chains;
+    counts[2] = nb;
+    counts[3] = base > 1 ? base : 1;
+    return 0;
+}
+
+// The packet decode's per-frame outputs (vp_decode_packets[_sym], frame i
+// = packet i) gathered into per-bucket arrays: bucket k holds frames
+// perm[bstart[k]:bstart[k+1]] of mode bmode[k], and each of its arrays
+// lies contiguous after the previous bucket's, rows in frame order.
+//
+// - meta is checked against the plan (ok, and the bucket's mode, on every
+//   frame); audio_bits[i] = meta[i, 4] in frame order.
+// - o_off/o_prime/o_final: each bucket's frames' offset (int32), prime
+//   and final.
+// - floors: job j = jobs[7j ..] = bucket, floor type, width (posts or
+//   order), first channel in chs, channel count nc, element offset of its
+//   [F_k, nc, width] block in o_posts/o_step2/o_ys (type 1) or o_f0c
+//   (type 0), and of its [F_k, nc] block in o_used and o_f0a.
+// - symbols (syms non-null): bucket k has bgroups[k] groups, group g
+//   nsym[k*n_groups + g] symbols a partition. o_pc gets each bucket's
+//   [F_k, G_k] applied partitions; o_syms and o_slots each group's
+//   stream, group after group and bucket after bucket;
+//   o_len[2(k*n_groups + g) ..] their lengths. o_cap bounds both outputs.
+//
+// Returns 0; 1 where meta disagrees with the plan (at frame *bad, the
+// lowest, or at a frame no bucket holds); 2 where a symbol stream is not
+// partition-aligned; 3 where the symbol outputs are too small; 4 where an
+// offset does not fit int32; -2 for bad arguments.
+int vp_gather_buckets(
+    int64_t n_frames, int64_t C, const int32_t* meta, const int64_t* perm,
+    const int64_t* bstart, const int64_t* bmode, int64_t n_buckets,
+    const int64_t* f_off, const uint8_t* f_prime, const uint8_t* f_final,
+    int32_t* o_off, uint8_t* o_prime, uint8_t* o_final, int64_t* audio_bits,
+    int64_t n_jobs, const int64_t* jobs, const int64_t* chs,
+    const int32_t* posts, const uint8_t* step2, const int16_t* ys,
+    const uint8_t* used, const float* f0c, int64_t f0_width,
+    const int32_t* f0a, int32_t* o_posts, uint8_t* o_step2, int16_t* o_ys,
+    uint8_t* o_used, float* o_f0c, int32_t* o_f0a, const uint16_t* syms,
+    const uint16_t* slots, const int32_t* sym_counts, int64_t sym_cap,
+    int64_t n_groups, const int64_t* bgroups, const int64_t* nsym,
+    int32_t* o_pc, uint16_t* o_syms,
+    uint16_t* o_slots, int64_t o_cap, int64_t* o_len, int64_t* bad) {
+    // the plan: every frame in one bucket, its packet decoded in its mode
+    std::vector<uint8_t> seen((size_t)n_frames, 0);
+    int64_t first_bad = n_frames;
+    for (int64_t k = 0; k < n_buckets; k++) {
+        for (int64_t r = bstart[k]; r < bstart[k + 1]; r++) {
+            int64_t f = perm[r];
+            if (f < 0 || f >= n_frames) return -2;
+            seen[(size_t)f] = 1;
+            const int32_t* m = meta + f * 5;
+            if ((m[0] != 1 || m[1] != bmode[k]) && f < first_bad)
+                first_bad = f;
+        }
+    }
+    for (int64_t f = 0; f < first_bad; f++)
+        if (!seen[(size_t)f]) { first_bad = f; break; }
+    if (first_bad < n_frames) {
+        *bad = first_bad;
+        return 1;
+    }
+    for (int64_t f = 0; f < n_frames; f++) audio_bits[f] = meta[f * 5 + 4];
+
+    for (int64_t r = 0; r < bstart[n_buckets]; r++) {
+        int64_t f = perm[r];
+        if (f_off[f] < INT32_MIN || f_off[f] > INT32_MAX) return 4;
+        o_off[r] = (int32_t)f_off[f];
+        o_prime[r] = f_prime[f] != 0;
+        o_final[r] = f_final[f] != 0;
+    }
+
+    for (int64_t j = 0; j < n_jobs; j++) {
+        const int64_t* jb = jobs + 7 * j;
+        const int64_t k = jb[0], ftype = jb[1], w = jb[2], nc = jb[4];
+        const int64_t* ch = chs + jb[3];
+        int64_t at = jb[5], uat = jb[6];
+        for (int64_t r = bstart[k]; r < bstart[k + 1]; r++) {
+            const int64_t f = perm[r];
+            for (int64_t ci = 0; ci < nc; ci++, at += w, uat++) {
+                const int64_t fc = f * C + ch[ci];
+                o_used[uat] = used[fc] != 0;
+                if (ftype == 1) {
+                    std::memcpy(o_posts + at, posts + fc * 65, 4 * (size_t)w);
+                    std::memcpy(o_ys + at, ys + fc * 65, 2 * (size_t)w);
+                    const uint8_t* s2 = step2 + fc * 65;
+                    for (int64_t q = 0; q < w; q++)
+                        o_step2[at + q] = s2[q] != 0;
+                } else {
+                    std::memcpy(o_f0c + at, f0c + fc * f0_width,
+                                4 * (size_t)w);
+                    o_f0a[uat] = f0a[fc];
+                }
+            }
+        }
+    }
+    if (!syms) return 0;
+
+    // each bucket: its group streams' lengths, then one pass over its
+    // frames' rows (group-major, syms and slots each with its own cursor:
+    // decode_one's flush) appending to every group's stream
+    int64_t spos = 0, ppos = 0, pcpos = 0;
+    std::vector<int64_t> sat((size_t)n_groups), pat((size_t)n_groups);
+    for (int64_t k = 0; k < n_buckets; k++) {
+        const int64_t G = bgroups[k];
+        const int64_t* ns = nsym + k * n_groups;
+        if (G > n_groups) return -2;
+        std::fill(sat.begin(), sat.end(), 0);
+        std::fill(pat.begin(), pat.end(), 0);
+        for (int64_t r = bstart[k]; r < bstart[k + 1]; r++) {
+            const int32_t* cnt = sym_counts + perm[r] * n_groups;
+            for (int64_t gi = 0; gi < G; gi++) {
+                // numpy's integer remainder and quotient by 0 give 0
+                if (ns[gi] && cnt[gi] % ns[gi]) return 2;
+                sat[(size_t)gi] += cnt[gi];
+                pat[(size_t)gi] += ns[gi] ? cnt[gi] / ns[gi] : 0;
+            }
+        }
+        for (int64_t gi = 0; gi < G; gi++) {
+            int64_t* len = o_len + 2 * (k * n_groups + gi);
+            len[0] = sat[(size_t)gi];
+            len[1] = pat[(size_t)gi];
+            sat[(size_t)gi] = spos;  // now each stream's write cursor
+            pat[(size_t)gi] = ppos;
+            spos += len[0];
+            ppos += len[1];
+        }
+        if (spos > o_cap || ppos > o_cap) return 3;
+        for (int64_t r = bstart[k]; r < bstart[k + 1]; r++) {
+            const int64_t f = perm[r];
+            const int32_t* cnt = sym_counts + f * n_groups;
+            const uint16_t* srow = syms + f * sym_cap;
+            const uint16_t* prow = slots + f * sym_cap;
+            for (int64_t gi = 0; gi < G; gi++) {
+                const int64_t c = cnt[gi], pc = ns[gi] ? c / ns[gi] : 0;
+                std::memcpy(o_syms + sat[(size_t)gi], srow, 2 * (size_t)c);
+                std::memcpy(o_slots + pat[(size_t)gi], prow, 2 * (size_t)pc);
+                sat[(size_t)gi] += c;
+                pat[(size_t)gi] += pc;
+                srow += c;
+                prow += pc;
+                o_pc[pcpos++] = (int32_t)pc;
+            }
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"
