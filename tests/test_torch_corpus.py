@@ -60,8 +60,10 @@ def test_stats(corpus, port):
     assert s["scalar"] == s["failed"] == 0
     # one chunk per channel count: stereo, mono (+ the mono raw stream), 5.1
     assert s["chunks"] == 3
-    assert set(s["stage_s"]) == {"front_end", "merge", "prepare", "h2d",
-                                 "dispatch", "device", "d2h", "unpack"}
+    assert set(s["stage_s"]) == {"front_end", "split", "merge", "prepare",
+                                 "h2d", "dispatch", "device", "d2h",
+                                 "unpack", "stitch"}
+    assert s["stage_s"]["split"] == s["stage_s"]["stitch"] == 0.0
     assert s["d2h_bytes"] == sum(4 * p.size for p in port)
     assert s["h2d_bytes"] > 0
 

@@ -30,7 +30,8 @@ from vorbispizza_tpu_torch import (
     decode_file_batch,
     decode_stream_batch,
 )
-from vorbispizza_tpu_torch.decoder import CLIP_MAX
+from vorbispizza_tpu_torch.decoder import CLIP_MAX, StreamDecoder
+from vorbispizza_tpu_torch.frames import build_plan, split_plan
 from vorbispizza_tpu_torch.models import corpus as torch_corpus
 from vorbispizza_tpu_torch.models.pipeline import BatchSynthesizer
 from vorbispizza_tpu_torch.ogg.container import OggContainer
@@ -90,8 +91,16 @@ def long_unsplit(long_stream):
 
 @pytest.mark.parametrize("max_frames", [7, 16, 50])
 def test_max_frames_split_is_identical(long_stream, long_unsplit, max_frames):
-    """split_plan chunks decode one after another to the unsplit PCM, bit
-    for bit, across block-switch boundaries."""
+    """split_plan pieces (at least two: the stream's 81 frames carry its
+    EOS end trim) decode one after another to the unsplit PCM, bit for
+    bit, across block-switch boundaries."""
+    c = OggContainer(io.BytesIO(long_stream))
+    assert c.try_init()
+    dec = StreamDecoder(c.providers[0])
+    dec.initialize()
+    plan = build_plan(c.providers[0], dec._setup)
+    assert plan.pcm_length < plan.total_len  # the end trim
+    assert len(split_plan(plan, max_frames)) >= 2
     got = decode_file_batch(long_stream, device="cpu", max_frames=max_frames)
     assert got.shape == long_unsplit.shape
     np.testing.assert_array_equal(got, long_unsplit)

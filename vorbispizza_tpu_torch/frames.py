@@ -24,6 +24,7 @@ exactly the reference's lapping semantics (StreamDecoder.cs:764).
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import itertools
 import threading
@@ -163,24 +164,6 @@ class FramePlan:
     @property
     def pcm_length(self) -> int:
         return sum(e - s for s, e in self.segments)
-
-    def is_cut_free(self) -> bool:
-        """True when every chain keeps exactly its full center-to-center
-        span — i.e. no granule trims (the fast OLA/split paths' domain)."""
-        s = self.soa()
-        for chain, segs in zip(self.chains, self.chain_segments):
-            if len(chain) < 2:
-                if segs:
-                    return False
-                continue
-            i0, i1 = chain[0], chain[-1]
-            span = (
-                int(s.offset[i0] + s.n[i0] // 2),
-                int(s.offset[i1] + s.n[i1] // 2),
-            )
-            if segs != [span]:
-                return False
-        return True
 
 
 def build_plan(provider: PacketProvider, setup) -> FramePlan:
@@ -507,96 +490,103 @@ def _cut(
     return emitted_end
 
 
+def dense_cost(plan: FramePlan, channels: int) -> np.ndarray:
+    """Each frame's dense spectrum bytes (channels x n/2 x float32), i64
+    [F]: what BucketBatch.batch_cost sums over a bucket's frames."""
+    return 2 * channels * plan.soa().n.astype(np.int64)
+
+
+def split_bounds(plan: FramePlan, cost: np.ndarray, first: int,
+                 rest: int) -> list[tuple[int, int]]:
+    """Frame ranges [a, b) of the pieces that plan_piece cuts from
+    ``plan``: the first piece's frames cost at most ``first`` (``cost``
+    per frame), each later piece's at most ``rest``, and a piece holds at
+    least two frames whatever they cost. A piece that ends inside a chain
+    shares its last frame with the next piece, which primes on it."""
+    F = plan.n_frames
+    cum = np.zeros(F + 1, dtype=np.int64)
+    np.cumsum(cost, out=cum[1:])
+    chain_start = np.zeros(F + 1, dtype=bool)
+    chain_start[[c[0] for c in plan.chains if c]] = True
+    chain_start[F] = True
+    out, a, budget = [], 0, first
+    while True:
+        b = int(np.searchsorted(cum, cum[a] + budget, side="right")) - 1
+        b = min(max(b, a + 2), F)
+        out.append((a, b))
+        if b >= F:
+            return out
+        a = b if chain_start[b] else b - 1
+        budget = rest
+
+
+def plan_piece(plan: FramePlan, a: int, b: int) -> FramePlan:
+    """Frames [a, b) of ``plan`` as a plan of their own, for bounded-memory
+    decode of long streams.
+
+    A chain cut at a frame boundary keeps that frame in both pieces: the
+    earlier piece flags it ``final`` (its right half masked), the later
+    ``prime`` (its left half masked), which is exactly the lapping split.
+    Each piece keeps the part of its chains' ``chain_segments`` (granule
+    trims included) that lies between its first and last frame's centres,
+    so the pieces' PCM, one after another, is the plan's, sample for
+    sample. Coordinates restart at the first frame's centre; packet spans
+    (``scan``) and FrameEntry objects are carried where the plan has
+    them."""
+    s = plan.soa()
+    centre = s.offset + s.n // 2
+    shift = int(centre[a])
+    prime = s.prime[a:b].copy()
+    final = s.final[a:b].copy()
+    # a piece starts at a chain's start or on a frame it shares with the
+    # previous piece, and ends at a chain's end or on one it shares
+    prime[0] = final[-1] = True
+    chains, chain_segments = [], []
+    for chain, segs in zip(plan.chains, plan.chain_segments):
+        if not chain or chain[-1] < a or chain[0] >= b:
+            continue
+        lo, hi = max(chain[0], a), min(chain[-1] + 1, b)
+        chains.append(list(range(lo - a, hi - a)))
+        keep_lo, keep_hi = int(centre[lo]), int(centre[hi - 1])
+        chain_segments.append([
+            (max(s0, keep_lo) - shift, min(e0, keep_hi) - shift)
+            for s0, e0 in segs if min(e0, keep_hi) > max(s0, keep_lo)])
+    buckets = {}
+    for key, idx in plan.buckets.items():  # each in frame order
+        inside = idx[bisect.bisect_left(idx, a) : bisect.bisect_left(idx, b)]
+        if inside:
+            buckets[key] = [f - a for f in inside]
+    soa = FrameSoA(s.n[a:b], s.left_start[a:b], s.left_end[a:b],
+                   s.right_end[a:b], s.offset[a:b] - shift, prime, final)
+    frames = [
+        replace(fr, offset=fr.offset - shift, prime=bool(p), final=bool(f))
+        for fr, p, f in zip(plan.frames[a:b], prime, final)
+    ]
+    scan = None
+    if plan.scan is not None:
+        blob, starts, ends = plan.scan
+        scan = (blob, starts[a:b], ends[a:b])
+    return FramePlan(
+        frames=frames,
+        total_len=max(int(centre[b - 1]) - shift, 1),
+        chains=chains,
+        chain_segments=chain_segments,
+        buckets=buckets,
+        scan=scan,
+        soa_cache=soa,
+    )
+
+
 def split_plan(plan: FramePlan, max_frames: int) -> list[FramePlan]:
-    """Split a plan into chunks of at most ``max_frames`` frames for
-    bounded-memory decode of long streams.
-
-    Chains split at frame boundaries with the boundary frame DUPLICATED:
-    the earlier chunk re-flags it ``final`` (right half masked) and the
-    later chunk ``prime`` (left half masked), which is exactly the lapping
-    split — per-sample output is bit-identical to the unsplit decode.
-
-    Plans with granule cuts are returned unsplit (rare; trimmed streams)."""
-    if len(plan.frames) <= max_frames:
+    """Split a plan into pieces of at most ``max_frames`` frames (at least
+    two), each decoded on its own, for bounded-memory decode of long
+    streams (plan_piece). The pieces' PCM, one after another, is the
+    plan's, bit for bit on the CPU, granule trims included."""
+    if plan.n_frames <= max_frames:
         return [plan]
-    max_frames = max(max_frames, 2)
-    if not plan.is_cut_free():
-        return [plan]
-
-    plans: list[FramePlan] = []
-    cur_frames: list[FrameEntry] = []
-    cur_chains: list[list[int]] = []
-    cur_segs: list[list[tuple[int, int]]] = []
-
-    def flush():
-        if not cur_frames:
-            return
-        buckets: dict[BucketKey, list[int]] = {}
-        for i, fr in enumerate(cur_frames):
-            key = BucketKey(fr.mode_idx, fr.info.prev_flag, fr.info.next_flag)
-            buckets.setdefault(key, []).append(i)
-        total = max(
-            (fr.offset + fr.info.n for fr in cur_frames), default=1
-        )
-        plans.append(
-            FramePlan(
-                frames=list(cur_frames),
-                total_len=total,
-                chains=list(cur_chains),
-                chain_segments=list(cur_segs),
-                buckets=buckets,
-            )
-        )
-        cur_frames.clear()
-        cur_chains.clear()
-        cur_segs.clear()
-
-    def add_subchain(idxs, prime_first: bool, final_last: bool):
-        base = len(cur_frames)
-        sub: list[int] = []
-        for j, fi in enumerate(idxs):
-            fr = plan.frames[fi]
-            cur_frames.append(
-                FrameEntry(
-                    packet=fr.packet,
-                    mode_idx=fr.mode_idx,
-                    info=fr.info,
-                    offset=fr.offset,
-                    prime=fr.prime or (prime_first and j == 0),
-                    final=fr.final or (final_last and j == len(idxs) - 1),
-                    granule=fr.granule,
-                )
-            )
-            sub.append(base + j)
-        cur_chains.append(sub)
-        if len(idxs) >= 2:
-            f0 = cur_frames[sub[0]]
-            f1 = cur_frames[sub[-1]]
-            cur_segs.append(
-                [(f0.offset + f0.info.n // 2, f1.offset + f1.info.n // 2)]
-            )
-        else:
-            cur_segs.append([])
-
-    for chain in plan.chains:
-        i = 0
-        while i < len(chain):
-            room = max_frames - len(cur_frames)
-            if room < 2:
-                flush()
-                continue
-            take = min(len(chain) - i, room)
-            end = i + take
-            add_subchain(
-                chain[i:end],
-                prime_first=(i > 0),
-                final_last=(end < len(chain)),
-            )
-            if end >= len(chain):
-                break
-            i = end - 1  # boundary frame re-enters the next chunk as priming
-    flush()
-    return plans
+    ones = np.ones(plan.n_frames, dtype=np.int64)
+    return [plan_piece(plan, a, b)
+            for a, b in split_bounds(plan, ones, max_frames, max_frames)]
 
 
 @dataclass
@@ -674,7 +664,7 @@ class BucketBatch:
 
 def extract_batch(
     plan: FramePlan, setup, channels: int, ident=None,
-    use_native: bool | None = None,
+    use_native: bool | None = None, n_threads: int | None = None,
 ) -> list[BucketBatch]:
     """Pass 2: entropy-decode every frame into per-bucket dense tensors.
 
@@ -682,7 +672,8 @@ def extract_batch(
     available and ``ident`` is provided; falls back to the pure-Python
     decode otherwise. Both paths produce identical tensors (double
     accumulation, float32 output). ``use_native=None`` follows
-    VorbisConfig.default.use_native_frontend. Spans of the calling
+    VorbisConfig.default.use_native_frontend. ``n_threads``: the C++
+    decode's threads (None: one a core, at most 16). Spans of the calling
     thread's task (utils/profiling.bind): the native call
     ``front.entropy`` (its threads' CPU as ``native_cpu_ns``), the C++
     gather after it ``front.native`` and the Python around that
@@ -700,7 +691,8 @@ def extract_batch(
             if transport in ("auto", "symbols"):
                 layout = _sym_layout_cached(setup, ident)
             return _extract_batch_native(
-                plan, setup, channels, ident, sym_layout=layout
+                plan, setup, channels, ident, sym_layout=layout,
+                n_threads=n_threads,
             )
     with profiling.sub("front.python"):
         return _extract_batch_python(plan, setup, channels)
@@ -734,7 +726,8 @@ def _bucket_groups(mapping, channels: int):
 
 
 def _extract_batch_native(
-    plan: FramePlan, setup, channels: int, ident, sym_layout=None
+    plan: FramePlan, setup, channels: int, ident, sym_layout=None,
+    n_threads: int | None = None,
 ) -> list[BucketBatch]:
     from . import native
     from .native.serialize import serialize_setup
@@ -763,12 +756,12 @@ def _extract_batch_native(
         if sym_layout is not None:
             dec = native.decode_packet_spans_sym(
                 blob, sblob, sstarts, sends, channels, max_order, sym_layout,
-                cpu_ns=cpu,
+                n_threads=n_threads, cpu_ns=cpu,
             )
         else:
             dec = native.decode_packet_spans(
                 blob, sblob, sstarts, sends, channels, max_half, max_order,
-                cpu_ns=cpu,
+                n_threads=n_threads, cpu_ns=cpu,
             )
         if sp is not None:
             sp.counters["native_cpu_ns"] = cpu.value

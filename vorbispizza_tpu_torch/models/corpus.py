@@ -8,7 +8,11 @@ structure:
   releases the GIL) run on a thread pool. The main thread consumes them
   in input order and groups streams by channel count into chunks of at
   least ``max_batch_bytes`` of dense spectrum, exactly as the reference
-  chunks, so the chunks and their sigs match it.
+  chunks, so the chunks and their sigs match it. A stream with more is
+  the exception (the reference keeps it whole): the main thread cuts its
+  plan into pieces that fit the chunks, the workers extract them, and
+  each piece is a unit of the chunks, its PCM placed into the stream's
+  answer.
 - ONE dispatch thread takes the chunks in submission order. For each it
   merges the streams (``merge_streams``), packs the wire
   (``BatchSynthesizer.prepare_host``), stages the nine host arrays in
@@ -45,6 +49,7 @@ import concurrent.futures as cf
 import contextlib
 import dataclasses
 import io
+import os
 import threading
 
 import numpy as np
@@ -65,7 +70,10 @@ from ..frames import (
     build_plan,
     build_plan_from_scan,
     build_plan_native,
+    dense_cost,
     extract_batch,
+    plan_piece,
+    split_bounds,
 )
 from ..ogg.container import OggContainer
 from ..ops import pcm_pack
@@ -79,15 +87,23 @@ _SYNTH_LOCK = threading.Lock()
 _SYNTH_CACHE_MAX = 32
 
 #: host wall-clock stages of decode_corpus (stats["stage_s"]), in
-#: pipeline order: the main thread's wait on front ends; the dispatch
-#: thread's merge, prepare_host, pinned staging + H2D enqueue and forward
-#: launch; the collectors' wait on a chunk's event, pull and unpack. Each
-#: sums the walls of its spans (utils/profiling.SPAN_STAGES)
-STAGES = ("front_end", "merge", "prepare", "h2d", "dispatch", "device",
-          "d2h", "unpack")
+#: pipeline order: the main thread's wait on front ends; a front-end
+#: worker's split of a long stream into pieces and their gathers; the
+#: dispatch thread's merge, prepare_host, pinned staging + H2D enqueue
+#: and forward launch; the collectors' wait on a chunk's event, pull and
+#: unpack; placing a piece's PCM into its stream's answer. Each sums the
+#: walls of its spans (utils/profiling.SPAN_STAGES)
+STAGES = ("front_end", "split", "merge", "prepare", "h2d", "dispatch",
+          "device", "d2h", "unpack", "stitch")
 
 #: config.s16_wire -> the fused body's output for output="s16"
 S16_FORMATS = {"dpack": "s16df", "planes": "s16p", "raw": "s16"}
+
+#: the least dense spectrum (bytes) of a piece of a long stream: a
+#: max_batch_bytes below it (one stream a chunk) splits no stream smaller,
+#: and cuts the longer ones at it, so that no chunk is a few frames whose
+#: fixed costs outweigh their work
+MIN_PIECE_BYTES = 1 << 20
 
 
 def _synthesizer_for(setup, channels: int) -> BatchSynthesizer:
@@ -105,6 +121,34 @@ def _synthesizer_for(setup, channels: int) -> BatchSynthesizer:
         else:
             synth.add_setup(setup)
         return synth
+
+
+#: the dense-spectrum limit of one stream (bytes) of the decode_corpus call
+#: whose front-end worker runs on this thread; unset elsewhere
+_split_limit = threading.local()
+
+
+def _set_split_limit(nbytes) -> None:
+    _split_limit.bytes = nbytes
+
+
+@dataclasses.dataclass(slots=True)
+class Unextracted:
+    """The buckets of a front end whose plan holds more dense spectrum than
+    its thread's split limit: nothing is decoded yet; its worker splits the
+    plan and extracts each piece with ``ident``."""
+
+    ident: object
+
+
+def _extract(plan, setup, ident):
+    """extract_batch of the whole plan; Unextracted where this thread's
+    decode_corpus call splits streams and the plan holds more dense
+    spectrum than the call's limit."""
+    limit = getattr(_split_limit, "bytes", None)
+    if limit is not None and int(dense_cost(plan, ident.channels).sum()) > limit:
+        return Unextracted(ident)
+    return extract_batch(plan, setup, ident.channels, ident=ident)
 
 
 def _front_end_native(data: bytes):
@@ -139,7 +183,7 @@ def _front_end_native(data: bytes):
         raise
     except Exception:
         return None  # headers the scanner mis-modeled: use the full path
-    buckets = extract_batch(plan, setup, ident.channels, ident=ident)
+    buckets = _extract(plan, setup, ident)
     if in_cpp:
         profiling.tally("front_native")
     return setup, ident.channels, plan, buckets
@@ -149,7 +193,8 @@ def _front_end(source):
     """One source -> (setup, channels, plan, buckets): the native front
     end, or the Python path (counted as "front_python", its Ogg and header
     parse and plan the span ``front.python``) where that cannot model the
-    stream."""
+    stream. On a decode_corpus worker that splits long streams, buckets is
+    Unextracted for a plan over the call's limit (_extract)."""
     if isinstance(source, (bytes, bytearray)):
         data = bytes(source)
     else:
@@ -167,7 +212,7 @@ def _front_end(source):
         dec = StreamDecoder(provider)
         dec.initialize()
         plan = build_plan(provider, dec._setup)
-    buckets = extract_batch(plan, dec._setup, dec.channels, ident=dec._ident)
+    buckets = _extract(plan, dec._setup, dec._ident)
     return dec._setup, dec.channels, plan, buckets
 
 
@@ -314,7 +359,10 @@ class CorpusOutputs(list):
     utils/profiling.BUILDS: setup parses, synthesizers, wire layouts, K1
     tables, bucket tables; 0 when earlier calls built them all),
     ``front_python`` (streams the native front end could not model),
-    ``front_native`` (streams whose plan and gather ran in C++) and
+    ``front_native`` (streams whose plan and gather ran in C++),
+    ``split_streams`` (streams over the chunk size, decoded in pieces),
+    ``pieces`` (the pieces they were cut into), ``chunk_bytes_max`` (the
+    largest chunk's dense spectrum bytes) and
     ``stage_s``: host wall seconds per stage of STAGES, each the summed
     walls of its spans (utils/profiling.SPAN_STAGES). The stages run on
     three kinds of thread at once, so their walls overlap and need not
@@ -331,6 +379,15 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t)
     return host.numpy()
+
+
+def _host_empty(shape, dtype: torch.dtype, dev: torch.device) -> np.ndarray:
+    """An uninitialised host array, in pinned memory where ``dev`` is a
+    CUDA device: PyTorch's host allocator keeps such blocks for the next
+    call, as it keeps _to_host's, where fresh pageable pages would fault
+    in on first write."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=dev.type == "cuda").numpy()
 
 
 def pull_dpack(wire: torch.Tensor, channels: int, out_len: int):
@@ -391,9 +448,22 @@ class _NullTimer:
 
 
 @dataclasses.dataclass(slots=True)
+class _Member:
+    """A stream decoded in pieces: its answer, allocated whole, each
+    piece's first sample in it (set as the pieces arrive, in order), and
+    whether the pieces make the answer ("ok"), or the stream failed or
+    went to the scalar decoder."""
+
+    out: object
+    at: list
+    state: str = "ok"
+
+
+@dataclasses.dataclass(slots=True)
 class _Chunk:
     """A dispatched chunk, handed from the dispatch thread to a collector
-    and to the main thread: its streams and their PCM lengths, its device
+    and to the main thread: its units (stream i, or piece k of stream i
+    as (i, k)) and their PCM lengths, its device
     and pull stream, its sig, kept samples, device output, completion
     event (None on the CPU), pinned staging copies and the key of the
     stream whose front end closed it."""
@@ -438,8 +508,12 @@ def decode_corpus(
     tensors left on the device, unclipped, as the reference leaves them;
     the caller's current stream of each device waits for them before the
     call returns). ``batched``: merge streams into chunks of at least
-    ``max_batch_bytes`` of dense spectrum; False runs one program per
-    stream through the same prepare, forward and pull. ``timer``: a
+    ``max_batch_bytes`` of dense spectrum; a stream with more (and more
+    than MIN_PIECE_BYTES) is cut into pieces (frames.plan_piece), the
+    first as large as its chunk has room for, the others of at most that
+    much, each a unit of the chunks, and each piece's PCM is placed into
+    the stream's answer. False runs one program per stream through the
+    same prepare, forward and pull. ``timer``: a
     utils.profiling.DecodeTimer (stages front_end, merge, prepare,
     dispatch, collect, collect_pull, collect_unpack; counters h2d_bytes
     and d2h_bytes; per-chunk marks c<k>.merge0, .dispatch0, .dispatched,
@@ -450,9 +524,13 @@ def decode_corpus(
     the interpreter lock), ``front.plan``, ``front.entropy`` (counter
     ``native_cpu_ns``: the C++ decode's threads) and ``front.gather``
     (the Python wrapping the plan and the buckets), or ``front.python``;
-    the dispatch thread's ``merge``, ``prepare``, ``h2d``, ``launch`` and
+    for a piece of a long stream, a worker's ``front`` and within it
+    ``front.split`` (the piece's plan and its extract_batch); the
+    dispatch thread's ``merge``, ``prepare``, ``h2d``, ``launch`` and
     a collector's ``wait``, ``pull``, ``unpack``
-    (key c<k>, chunk k; cause the s<i> whose front end closed the chunk)).
+    (key c<k>, chunk k; cause the s<i> whose front end closed the chunk);
+    ``stitch`` (key s<i>) where a piece's PCM goes into its stream's
+    answer, on a collector or, for ``output="device"``, the caller).
     Without a timer no span is made and no thread clock read. A timer
     lacking ``span`` or ``mark`` is wrapped (profiling.adapt): its
     stages still flow. ``on_error``: "raise" propagates a
@@ -480,7 +558,8 @@ def decode_corpus(
     stats = {"streams": len(sources), "batched": 0, "scalar": 0, "failed": 0,
              "chunks": 0, "h2d_bytes": 0, "d2h_bytes": 0,
              "builds": dict.fromkeys(profiling.BUILDS, 0), "front_python": 0,
-             "front_native": 0, "stage_s": dict.fromkeys(STAGES, 0.0)}
+             "front_native": 0, "split_streams": 0, "pieces": 0,
+             "chunk_bytes_max": 0, "stage_s": dict.fromkeys(STAGES, 0.0)}
     outs.stats = stats
     lock = threading.Lock()  # stats: the three kinds of thread update it
     pull_lock = threading.Lock()  # one pull at a time: the link is one pipe
@@ -504,6 +583,56 @@ def decode_corpus(
             if on_error == "raise":
                 raise
             return _FAILED
+
+    members: dict = {}  # stream index -> _Member, for streams in pieces
+    # the workers extract a long stream's pieces side by side: each C++
+    # decode takes its share of the cores
+    piece_threads = max(1, min(os.cpu_count() or 1, 16) // n_workers)
+
+    def piece_or_none(i, front, a, b):
+        """Frames [a, b) of stream i's plan as a piece, extracted (a
+        front-end worker)."""
+        key = f"s{i}"
+        profiling.bind(spans, key)
+        setup, channels, plan, pending = front
+        try:
+            with spans("front", key), spans("front.split", key):
+                piece = plan_piece(plan, a, b)
+                return setup, channels, piece, extract_batch(
+                    piece, setup, channels, ident=pending.ident,
+                    n_threads=piece_threads)
+        except BatchUnsupported:
+            return None
+        except VorbisError:
+            if on_error == "raise":
+                raise
+            return _FAILED
+
+    def drop(i, state):
+        """Take split stream i off its pieces; True the first time."""
+        with lock:
+            m = members[i]
+            if m.state != "ok":
+                return False
+            m.state = state
+            return True
+
+    def unit_scalar(u):
+        if isinstance(u, int):
+            scalar(u)
+        elif drop(u[0], "scalar"):
+            scalar(u[0])
+
+    def stitch(u, pcm):
+        """Place piece u's PCM into its stream's answer."""
+        i, k = u
+        m = members[i]
+        with spans("stitch", f"s{i}"):
+            at = m.at[k]
+            if isinstance(pcm, torch.Tensor):
+                m.out[:, at : at + pcm.shape[1]].copy_(pcm)
+            else:
+                m.out[:, at : at + pcm.shape[1]] = pcm
 
     def scalar(i):
         # "device" output: the host PCM goes to the device on the main
@@ -546,8 +675,8 @@ def decode_corpus(
         if plan.n_frames == 0:
             # no decodable audio frame in the chunk: the scalar anchor is
             # authoritative for degenerate streams
-            for i in idx:
-                scalar(i)
+            for u in idx:
+                unit_scalar(u)
             return None
         dev = devs[cid % len(devs)]
         stream, pull = lanes[dev]
@@ -569,12 +698,12 @@ def decode_corpus(
                         event.record(stream)
                 t.mark(f"{ck}.dispatched")
         except BatchUnsupported:
-            for i in idx:
-                scalar(i)
+            for u in idx:
+                unit_scalar(u)
             return None
         with lock:
             stats["chunks"] += 1
-            stats["batched"] += len(idx)
+            stats["batched"] += sum(isinstance(u, int) for u in idx)
             stats["h2d_bytes"] += h2d
         rec = _Chunk(cid=cid, idx=idx, lengths=lengths, dev=dev, pull=pull,
                      channels=synth.channels, sig=sig, total=total, out=out,
@@ -608,22 +737,93 @@ def decode_corpus(
         t.mark(f"{ck}.pull_done")
         with spans("unpack", ck, rec.cause):
             if fmt == "s16df":
-                return pcm_pack.unpack_pcm(host, widx, rec.channels,
-                                           rec.sig[3], ch_ubit)[:, :total]
-            if fmt == "s16p":
+                pcm = pcm_pack.unpack_pcm(host, widx, rec.channels,
+                                          rec.sig[3], ch_ubit)[:, :total]
+            elif fmt == "s16p":
                 # byte planes [2, C, L] u8 -> int16, losslessly
-                return (((host[1].astype(np.int32) << 8) | host[0])
-                        - 32768).astype(np.int16)
-            if fmt == "f32" and clip_samples:
-                np.clip(host, -CLIP_MAX, CLIP_MAX, out=host)
-            return host
+                pcm = (((host[1].astype(np.int32) << 8) | host[0])
+                       - 32768).astype(np.int16)
+            else:
+                if fmt == "f32" and clip_samples:
+                    np.clip(host, -CLIP_MAX, CLIP_MAX, out=host)
+                pcm = host
+        c = 0
+        for u, ln in zip(rec.idx, rec.lengths):
+            if isinstance(u, tuple):
+                stitch(u, pcm[:, c : c + ln])
+            c += ln
+        return pcm
 
     fronts_by_idx: dict = {}
-    acc: dict = {}  # channels -> [indices, dense spectrum bytes]
+    acc: dict = {}  # channels -> [units, dense spectrum bytes]
     dispatch_futs: list = []
+    # a stream over this is cut into pieces of at most it
+    piece_bytes = max(max_batch_bytes, MIN_PIECE_BYTES)
+
+    def close(channels, cause):
+        """Dispatch the open chunk of ``channels`` (the main thread)."""
+        units, nbytes = acc[channels]
+        acc[channels] = [[], 0]
+        with lock:
+            stats["chunk_bytes_max"] = max(stats["chunk_bytes_max"], nbytes)
+        dispatch_futs.append(dispatch_pool.submit(dispatch, units,
+                                                  fronts_by_idx, cause))
+
+    def take(unit, front):
+        """Add a unit to its channel count's open chunk; True where the
+        chunk is full."""
+        group = acc.setdefault(front[1], [[], 0])
+        group[0].append(unit)
+        group[1] += sum(b.batch_cost for b in front[3])
+        return not batched or group[1] >= max_batch_bytes
+
+    def split(i, front):
+        """Stream i in pieces (the main thread): the first as large as its
+        chunk has room for, each closing its chunk but the last; the
+        front-end workers cut and extract them, taken here in order."""
+        setup, channels, plan, _ = front
+        cost = dense_cost(plan, channels)
+        group = acc.get(channels)
+        if group and group[0] and piece_bytes - group[1] < cost[:2].sum():
+            close(channels, f"s{i}")  # no room for a piece of two frames
+        room = piece_bytes - acc.get(channels, [[], 0])[1]
+        bounds = split_bounds(plan, cost, room, piece_bytes)
+        shape = (channels, plan.pcm_length)
+        if output == "device":
+            out = torch.empty(shape, dtype=torch.float32, device=devs[0])
+        else:
+            out = _host_empty(shape, torch.int16 if output == "s16"
+                              else torch.float32, devs[0])
+        m = members[i] = _Member(out, [])
+        add("split_streams", 1)
+        add("pieces", len(bounds))
+        pieces = [front_pool.submit(piece_or_none, i, front, a, b)
+                  for a, b in bounds]
+        at = 0
+        for k, fut in enumerate(pieces):
+            with spans("front.wait", f"s{i}"):
+                piece = fut.result()
+            if m.state != "ok":
+                continue  # off its pieces: the rest are read and dropped
+            if piece is _FAILED:
+                if drop(i, "failed"):
+                    add("failed", 1)
+                continue
+            if piece is None:
+                if drop(i, "scalar"):
+                    scalar(i)
+                continue
+            m.at.append(at)
+            at += piece[2].pcm_length
+            fronts_by_idx[(i, k)] = piece
+            if take((i, k), piece) or k < len(pieces) - 1:
+                close(channels, f"s{i}")
+
     with spans("call"):
-        front_pool = cf.ThreadPoolExecutor(max_workers=n_workers,
-                                           thread_name_prefix="vp-front")
+        front_pool = cf.ThreadPoolExecutor(
+            max_workers=n_workers, thread_name_prefix="vp-front",
+            initializer=_set_split_limit,
+            initargs=(piece_bytes if batched else None,))
         # merge/prepare/dispatch run on ONE thread, in submission order
         # (chunk composition stays deterministic) while the main thread
         # goes on taking front ends; collectors pull and unpack behind
@@ -649,19 +849,16 @@ def decode_corpus(
                     if front is None:
                         scalar(i)
                         continue
+                    if isinstance(front[3], Unextracted):
+                        split(i, front)
+                        continue
                     fronts_by_idx[i] = front
-                    group = acc.setdefault(front[1], [[], 0])
-                    group[0].append(i)
-                    group[1] += sum(b.batch_cost for b in front[3])
-                    if not batched or group[1] >= max_batch_bytes:
-                        dispatch_futs.append(dispatch_pool.submit(
-                            dispatch, sorted(group[0]), fronts_by_idx,
-                            f"s{i}"))
-                        acc[front[1]] = [[], 0]
-            for idxs, _nbytes in acc.values():
-                if idxs:  # closed by the end of the input: its last stream
-                    dispatch_futs.append(dispatch_pool.submit(
-                        dispatch, sorted(idxs), fronts_by_idx, f"s{idxs[-1]}"))
+                    if take(i, front):
+                        close(front[1], f"s{i}")
+            for channels, (units, _nbytes) in list(acc.items()):
+                if units:  # closed by the end of the input: its last unit
+                    last = units[-1]
+                    close(channels, f"s{last if isinstance(last, int) else last[0]}")
             with t.stage("collect"):
                 # ordered drain; propagates dispatch and collector errors
                 done = [r for r in (f.result() for f in dispatch_futs) if r]
@@ -675,9 +872,16 @@ def decode_corpus(
                     else:
                         pcm = fut.result()
                     c = 0
-                    for i, ln in zip(rec.idx, rec.lengths):
-                        outs[i] = pcm[:, c : c + ln]
+                    for u, ln in zip(rec.idx, rec.lengths):
+                        if isinstance(u, int):
+                            outs[u] = pcm[:, c : c + ln]
+                        elif fut is None:  # a collector stitched the others
+                            stitch(u, pcm[:, c : c + ln])
                         c += ln
+                for i, m in members.items():
+                    if m.state == "ok":
+                        outs[i] = m.out
+                        add("batched", 1)
         finally:
             # an error must not leave in-flight front ends, dispatches or
             # pulls running after decode_corpus returns

@@ -1054,10 +1054,17 @@ def upload(arrays, device: torch.device):
     non-blocking copy on the current stream, so the host goes on while
     the copies run; the staging copies are returned so a caller can hold
     them until the stream has passed the copies (PyTorch's pinned
-    allocator holds a freed block until then too)."""
+    allocator holds a freed block until then too). The staging copy is
+    numpy's, on the calling thread: PyTorch's would wake its CPU thread
+    pool, whose threads then spin for each chunk."""
     if device.type == "cpu":
         return [torch.from_numpy(a) for a in arrays], []
-    staged = [torch.from_numpy(a).pin_memory() for a in arrays]
+    staged = []
+    for a in arrays:
+        p = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
+                        pin_memory=True)
+        np.copyto(p.numpy(), a)
+        staged.append(p)
     return [p.to(device, non_blocking=True) for p in staged], staged
 
 
@@ -1135,9 +1142,9 @@ def decode_stream_batch(provider, *, device="cuda", clip_samples: bool = True,
     reference's decode_stream_batch fills it.
 
     ``max_frames`` bounds memory for very long streams: the plan splits
-    into chunks that decode one after another (frames.split_plan; each
-    chunk's own program, so on the card only the anchor budget holds
-    across chunkings, not bit equality)."""
+    into pieces that decode one after another into their slices of the
+    answer (frames.split_plan; each piece's own program, so on the card
+    only the anchor budget holds across splits, not bit equality)."""
     dev = resolve_device(device)
     dec = StreamDecoder(provider)
     dec.initialize()
@@ -1145,12 +1152,13 @@ def decode_stream_batch(provider, *, device="cuda", clip_samples: bool = True,
     plan = build_plan(provider, setup)
     plans = split_plan(plan, max_frames) if max_frames else [plan]
     synth = BatchSynthesizer(setup, dec.channels)
-    parts = []
+    pcm = np.empty((dec.channels, plan.pcm_length), dtype=np.float32)
+    at = 0
     for p in plans:
         buckets = extract_batch(p, setup, dec.channels, ident=dec._ident)
-        parts.append(np.array(synth.assemble(p, buckets, device=dev).cpu(),
-                              dtype=np.float32))
-    pcm = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+        part = synth.assemble(p, buckets, device=dev).cpu().numpy()
+        pcm[:, at : at + part.shape[1]] = part
+        at += part.shape[1]
     if clip_samples:
         np.clip(pcm, -CLIP_MAX, CLIP_MAX, out=pcm)
     if stats is not None:

@@ -36,6 +36,7 @@ import torch
 #: and the H2D staging, as the reference's does.
 SPAN_STAGES = {
     "front.wait": ("front_end", None),
+    "front.split": ("split", None),
     "merge": ("merge", "merge"),
     "prepare": ("prepare", "prepare"),
     "h2d": ("h2d", "prepare"),
@@ -43,6 +44,7 @@ SPAN_STAGES = {
     "wait": ("device", None),
     "pull": ("d2h", "collect_pull"),
     "unpack": ("unpack", "collect_unpack"),
+    "stitch": ("stitch", None),
 }
 
 #: kinds of table build counted in a call's ``stats["builds"]``
