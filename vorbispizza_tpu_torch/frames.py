@@ -765,6 +765,9 @@ def _extract_batch_native(
             )
         if sp is not None:
             sp.counters["native_cpu_ns"] = cpu.value
+    if n_threads is not None:  # a corpus call's share of the cores
+        profiling.tally("native_decodes")
+        profiling.tally("native_threads", n_threads)
     return _gather_buckets(plan, setup, channels, dec, sym_layout)
 
 

@@ -123,13 +123,34 @@ def _synthesizer_for(setup, channels: int) -> BatchSynthesizer:
         return synth
 
 
-#: the dense-spectrum limit of one stream (bytes) of the decode_corpus call
-#: whose front-end worker runs on this thread; unset elsewhere
-_split_limit = threading.local()
+def _cores() -> int:
+    """The cores this process may run on."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # a platform without affinity masks
+        return os.cpu_count() or 1
 
 
-def _set_split_limit(nbytes) -> None:
-    _split_limit.bytes = nbytes
+def decode_threads(n_workers: int, n_units: int) -> int:
+    """Threads of each C++ entropy decode on a front-end pool of
+    ``n_workers`` given ``n_units`` decodes (a whole stream or a piece of a
+    long one each): the cores, at most 16 as the C++ default takes, shared
+    among the decodes the pool runs at once."""
+    return max(1, min(_cores(), 16) // max(1, min(n_workers, n_units)))
+
+
+#: the dense-spectrum limit of one stream (bytes; None: no stream is
+#: split) and the C++ decode's threads of the corpus call whose front-end
+#: worker runs on this thread; unset elsewhere
+_worker = threading.local()
+
+
+def join_pool(split_bytes: int | None, threads: int) -> None:
+    """Make this thread a front-end worker of a corpus call (decode_corpus,
+    decode_corpus_sharded) whose C++ decodes of whole streams take
+    ``threads`` (a pool's initializer)."""
+    _worker.split_bytes = split_bytes
+    _worker.threads = threads
 
 
 @dataclasses.dataclass(slots=True)
@@ -144,11 +165,13 @@ class Unextracted:
 def _extract(plan, setup, ident):
     """extract_batch of the whole plan; Unextracted where this thread's
     decode_corpus call splits streams and the plan holds more dense
-    spectrum than the call's limit."""
-    limit = getattr(_split_limit, "bytes", None)
+    spectrum than the call's limit. On a call's worker (join_pool) the C++
+    decode takes the call's share of the cores; elsewhere the C++ default."""
+    limit = getattr(_worker, "split_bytes", None)
     if limit is not None and int(dense_cost(plan, ident.channels).sum()) > limit:
         return Unextracted(ident)
-    return extract_batch(plan, setup, ident.channels, ident=ident)
+    return extract_batch(plan, setup, ident.channels, ident=ident,
+                         n_threads=getattr(_worker, "threads", None))
 
 
 def _front_end_native(data: bytes):
@@ -362,7 +385,10 @@ class CorpusOutputs(list):
     ``front_native`` (streams whose plan and gather ran in C++),
     ``split_streams`` (streams over the chunk size, decoded in pieces),
     ``pieces`` (the pieces they were cut into), ``chunk_bytes_max`` (the
-    largest chunk's dense spectrum bytes) and
+    largest chunk's dense spectrum bytes), ``native_decodes`` (C++
+    entropy decodes, of whole streams and pieces), ``native_threads``
+    (the threads those decodes were given, summed; the C++ starts at most
+    one a packet) and
     ``stage_s``: host wall seconds per stage of STAGES, each the summed
     walls of its spans (utils/profiling.SPAN_STAGES). The stages run on
     three kinds of thread at once, so their walls overlap and need not
@@ -513,7 +539,10 @@ def decode_corpus(
     first as large as its chunk has room for, the others of at most that
     much, each a unit of the chunks, and each piece's PCM is placed into
     the stream's answer. False runs one program per stream through the
-    same prepare, forward and pull. ``timer``: a
+    same prepare, forward and pull. ``n_workers``: the front-end threads
+    (None: config.corpus_workers); each C++ entropy decode on them takes
+    the cores shared among the decodes that run at once
+    (decode_threads). ``timer``: a
     utils.profiling.DecodeTimer (stages front_end, merge, prepare,
     dispatch, collect, collect_pull, collect_unpack; counters h2d_bytes
     and d2h_bytes; per-chunk marks c<k>.merge0, .dispatch0, .dispatched,
@@ -559,7 +588,8 @@ def decode_corpus(
              "chunks": 0, "h2d_bytes": 0, "d2h_bytes": 0,
              "builds": dict.fromkeys(profiling.BUILDS, 0), "front_python": 0,
              "front_native": 0, "split_streams": 0, "pieces": 0,
-             "chunk_bytes_max": 0, "stage_s": dict.fromkeys(STAGES, 0.0)}
+             "chunk_bytes_max": 0, "native_decodes": 0, "native_threads": 0,
+             "stage_s": dict.fromkeys(STAGES, 0.0)}
     outs.stats = stats
     lock = threading.Lock()  # stats: the three kinds of thread update it
     pull_lock = threading.Lock()  # one pull at a time: the link is one pipe
@@ -585,13 +615,12 @@ def decode_corpus(
             return _FAILED
 
     members: dict = {}  # stream index -> _Member, for streams in pieces
-    # the workers extract a long stream's pieces side by side: each C++
-    # decode takes its share of the cores
-    piece_threads = max(1, min(os.cpu_count() or 1, 16) // n_workers)
+    # a stream over this is cut into pieces of at most it
+    piece_bytes = max(max_batch_bytes, MIN_PIECE_BYTES)
 
-    def piece_or_none(i, front, a, b):
-        """Frames [a, b) of stream i's plan as a piece, extracted (a
-        front-end worker)."""
+    def piece_or_none(i, front, a, b, threads):
+        """Frames [a, b) of stream i's plan as a piece, extracted on
+        ``threads`` (a front-end worker)."""
         key = f"s{i}"
         profiling.bind(spans, key)
         setup, channels, plan, pending = front
@@ -600,7 +629,7 @@ def decode_corpus(
                 piece = plan_piece(plan, a, b)
                 return setup, channels, piece, extract_batch(
                     piece, setup, channels, ident=pending.ident,
-                    n_threads=piece_threads)
+                    n_threads=threads)
         except BatchUnsupported:
             return None
         except VorbisError:
@@ -757,8 +786,6 @@ def decode_corpus(
     fronts_by_idx: dict = {}
     acc: dict = {}  # channels -> [units, dense spectrum bytes]
     dispatch_futs: list = []
-    # a stream over this is cut into pieces of at most it
-    piece_bytes = max(max_batch_bytes, MIN_PIECE_BYTES)
 
     def close(channels, cause):
         """Dispatch the open chunk of ``channels`` (the main thread)."""
@@ -797,7 +824,9 @@ def decode_corpus(
         m = members[i] = _Member(out, [])
         add("split_streams", 1)
         add("pieces", len(bounds))
-        pieces = [front_pool.submit(piece_or_none, i, front, a, b)
+        # the pieces decode in the stream's place, among the call's others
+        threads = decode_threads(n_workers, len(sources) + len(bounds) - 1)
+        pieces = [front_pool.submit(piece_or_none, i, front, a, b, threads)
                   for a, b in bounds]
         at = 0
         for k, fut in enumerate(pieces):
@@ -822,8 +851,9 @@ def decode_corpus(
     with spans("call"):
         front_pool = cf.ThreadPoolExecutor(
             max_workers=n_workers, thread_name_prefix="vp-front",
-            initializer=_set_split_limit,
-            initargs=(piece_bytes if batched else None,))
+            initializer=join_pool,
+            initargs=(piece_bytes if batched else None,
+                      decode_threads(n_workers, len(sources))))
         # merge/prepare/dispatch run on ONE thread, in submission order
         # (chunk composition stays deterministic) while the main thread
         # goes on taking front ends; collectors pull and unpack behind

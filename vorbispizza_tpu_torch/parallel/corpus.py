@@ -55,12 +55,14 @@ from ..models.corpus import (
     _streams,
     _synthesizer_for,
     _to_host,
+    decode_threads,
+    join_pool,
     merge_streams,
     pull_dpack,
 )
 from ..models.pipeline import DPACK, merge_pads, upload
 from ..ops.pcm_pack import unpack_pcm
-from ..utils.profiling import CallSpans, DecodeTimer, adapt
+from ..utils.profiling import CallSpans, DecodeTimer, adapt, bind
 
 __all__ = [
     "ShardMismatch",
@@ -309,7 +311,10 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
     input order, with ``stats``: streams, groups, shards (launched),
     batched, scalar (streams routed to the scalar decoder), failed,
     mismatch_fallbacks (groups dispatched per device), d2h_bytes,
-    wire_bytes (the dpack payload bytes of every shard), ``stage_s`` (host
+    wire_bytes (the dpack payload bytes of every shard), native_decodes
+    and native_threads (the front ends' C++ entropy decodes and the
+    threads they were given, summed: each takes the cores shared among
+    the workers, models/corpus.decode_threads), ``stage_s`` (host
     wall seconds of models/corpus.py's STAGES, one after another here, the
     walls of the spans of utils/profiling.SPAN_STAGES) and
     ``shard_prepare_s`` (each launched group's prepare_host seconds a
@@ -343,8 +348,9 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
     outs = CorpusOutputs([None] * len(sources))
     stats = {"streams": len(sources), "groups": 0, "shards": 0, "batched": 0,
              "scalar": 0, "failed": 0, "mismatch_fallbacks": 0,
-             "d2h_bytes": 0, "wire_bytes": 0,
-             "stage_s": dict.fromkeys(STAGES, 0.0), "shard_prepare_s": []}
+             "d2h_bytes": 0, "wire_bytes": 0, "native_decodes": 0,
+             "native_threads": 0, "stage_s": dict.fromkeys(STAGES, 0.0),
+             "shard_prepare_s": []}
     outs.stats = stats
 
     def scalar_or_failed(i):
@@ -367,11 +373,19 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
                 raise
             return e
 
+    n_workers = VorbisConfig.default.corpus_workers
+    threads = decode_threads(n_workers, len(sources))
+    spans = CallSpans(timer, stats)
+
+    def worker():
+        join_pool(None, threads)
+        bind(spans)  # the front-end stages and the decodes' counts
+
     fronts: dict = {}
     groups: dict = {}
-    with cf.ThreadPoolExecutor(VorbisConfig.default.corpus_workers,
-                               thread_name_prefix="vp-front") as pool, \
-            CallSpans(timer, stats)("front.wait"):
+    with cf.ThreadPoolExecutor(n_workers, thread_name_prefix="vp-front",
+                               initializer=worker) as pool, \
+            spans("front.wait"):
         for i, front in enumerate(pool.map(front_end, sources)):
             if isinstance(front, VorbisError):
                 stats["failed"] += 1  # slot stays None

@@ -299,15 +299,15 @@ class CallSpans:
                 with self.lock:
                     self.stage_s[stage] += sp.wall_s
 
-    def tally(self, name: str) -> None:
+    def tally(self, name: str, n: int = 1) -> None:
         if self.stats is None:
             return
         with self.lock:
             builds = self.stats.get("builds")
             if builds is not None and name in builds:
-                builds[name] += 1
+                builds[name] += n
             elif name in self.stats:
-                self.stats[name] += 1
+                self.stats[name] += n
 
 
 #: the call (CallSpans) and task key the current thread works for
@@ -332,9 +332,10 @@ def sub(name: str):
     return rec(name, _bound.key)
 
 
-def tally(name: str) -> None:
-    """Count one ``name`` (a table build of BUILDS, or a stats counter)
-    to the call this thread works for; nothing where none is bound."""
+def tally(name: str, n: int = 1) -> None:
+    """Count ``n`` of ``name`` (a table build of BUILDS, or a stats
+    counter) to the call this thread works for; nothing where none is
+    bound."""
     rec = getattr(_bound, "rec", None)
     if rec is not None:
-        rec.tally(name)
+        rec.tally(name, n)
