@@ -84,7 +84,8 @@ nothing of the JAX package: the float64 anchor is the port's own
    C = 2, 1024 frames a shard) on 2x2 and 1x4 meshes, within 1e-6 of its
    one-shard run with the same clip flag; (j) ``entry.dryrun_multichip(4)``;
    (k) ``tools.fuzz`` for FUZZ_S seconds from seed FUZZ_SEED, its counts by
-   shape and status, no failed trial;
+   shape and status, no failed trial; (l) ``tools.ablate`` at one rep on
+   the first chunk, every variant returning (its times not printed);
 5. once the CPU workers of phases 3-4 have stopped: each kernel's time,
    its twin's and, where one PyTorch call computes the same function,
    that call's (CUDA events around 20 calls after a warm one, at phase
@@ -93,19 +94,14 @@ nothing of the JAX package: the float64 anchor is the port's own
    20 calls again under torch.profiler: ``device_ms``, the device time
    per call of the kernel's own CUDA kernels, ``device_all_ms`` of every
    device op of the call, and ``device_launches``, the device ops per
-   call (fills and scans around the kernel included). Then one warm and
-   three timed runs each of the default f32 and s16, the fallback s16 and
-   the floor0 f32: realtime factor, stage walls and device->host bytes;
-   and one more s16 run under torch.profiler: the device's busy and idle
-   share of its window, its top device ops by time, and the device ops
-   that ran between each chunk's K4 (dpack mode) and K6. Then one s16 run
-   with a DecodeTimer: its per-chunk timeline and, for each chunk k >= 1,
-   whether chunk k's merge began before chunk k-1's pull was done (the
-   overlap); ``decode_file_batch`` on one corpus32 stream, the median
-   of 5 timed calls after a warm one (single-file latency); ``tools.ablate``
-   on corpus32's first chunk (each stage snapped out in turn); and one
-   warm and three timed runs of the sharded s16 decode (4 x the card):
-   wall, realtime factor, stage walls and each shard's host packing time.
+   call (fills and scans around the kernel included). Then one s16 run
+   of corpus32 under torch.profiler, after a warm one with a caller's
+   ``DecodeTimer`` (each chunk's six marks present and in order, its
+   h2d/d2h byte counters equal to ``stats``): the device's busy
+   and idle share of its window, its top device ops by time, and the
+   device ops that ran between each chunk's K4 (dpack mode) and K6. The
+   corpus driver's end-to-end walls are the benchmark's (``vpbench/``);
+   no wall of ``decode_file_batch`` or of the sharded driver is taken.
 
 Any failure raises (exit code 1). Without CUDA, or without the package
 beside it, it exits 2 and prints no result. The last two lines are the
@@ -132,6 +128,8 @@ SHARDS = 4  # mesh entries of phase 4 (g), (h) and (j), each the one card
 MESH_FRAMES = 1024  # frames a shard of the mesh step, phase 4 (i)
 FUZZ_S = 60.0  # phase 4 (k)'s budget, seconds
 FUZZ_SEED = 90000
+MARKS = ("merge0", "dispatch0", "dispatched", "pull_wait", "pull0",
+         "pull_done")  # a chunk's DecodeTimer marks, in their order
 KERNELS = {
     # name: (source, reference stage it replaces, run its launches are
     # read from, launch-count key[, phase-3 check if not that key])
@@ -1187,9 +1185,9 @@ def _hold(name, got, want, anchors, np, what):
 
 
 def check_scale_out(path, corpus, anchors, f32, s16, np, card):
-    """Phase 4, checks (g)-(k): the sharded corpus decode, its mixed-setup
+    """Phase 4, checks (g)-(l): the sharded corpus decode, its mixed-setup
     groups, the mesh step, the dry run and the fuzzer, each on a mesh
-    whose every entry is this card."""
+    whose every entry is this card, and the stage ablation."""
     from vorbispizza_tpu_torch import decode_corpus
     from vorbispizza_tpu_torch import entry as E
     from vorbispizza_tpu_torch.decoder import CLIP_MAX
@@ -1200,7 +1198,7 @@ def check_scale_out(path, corpus, anchors, f32, s16, np, card):
         sharded_decode_step,
     )
     from vorbispizza_tpu_torch.testing import rawstream
-    from vorbispizza_tpu_torch.tools import fuzz
+    from vorbispizza_tpu_torch.tools import ablate, fuzz
 
     mesh = Mesh(["cuda:0"] * SHARDS, ("stream",))
 
@@ -1291,89 +1289,45 @@ def check_scale_out(path, corpus, anchors, f32, s16, np, card):
     if res["failed"]:
         raise AssertionError(f"fuzz: failed seeds {res['failed']}")
 
-
-def time_scale_out(corpus, card):
-    """Phase 5: the stage ablation on corpus32's first chunk, and the
-    sharded s16 decode's walls."""
-    import numpy as np
-
-    from vorbispizza_tpu_torch.parallel.corpus import decode_corpus_sharded
-    from vorbispizza_tpu_torch.parallel.mesh import Mesh
-    from vorbispizza_tpu_torch.testing.corpus32 import RECIPE
-    from vorbispizza_tpu_torch.tools import ablate
-
-    print("phase 5: tools.ablate on corpus32's first chunk (CUDA events "
-          "around 5 forward calls after a warm one)", flush=True)
-    res = ablate.run_ablation(reps=5, device="cuda",
-                              log=lambda m: print("  " + m, flush=True))
-    print(f"  ablate {json.dumps(res)} [{card}]", flush=True)
-
-    print(f"phase 5: decode_corpus_sharded(corpus32, {SHARDS} x cuda:0, "
-          f"output='s16'): one warm run, three timed runs", flush=True)
-    mesh = Mesh(["cuda:0"] * SHARDS, ("stream",))
-    o = decode_corpus_sharded(corpus, mesh, output="s16")
-    seconds = sum(p.shape[1] for p in o) / RECIPE["rate"]
-    rtfs = []
-    for rep in range(3):
-        t0 = time.perf_counter()
-        o = decode_corpus_sharded(corpus, mesh, output="s16")
-        wall = time.perf_counter() - t0
-        rtfs.append(seconds / wall)
-        print(f"  run {rep}: {wall:.4f} s, {rtfs[-1]:.1f}x realtime; d2h "
-              f"{o.stats['d2h_bytes']} B, wire {o.stats['wire_bytes']} B; "
-              f"stages {json.dumps(o.stats['stage_s'])}; prepare_host a "
-              f"shard {json.dumps(o.stats['shard_prepare_s'])} [{card}]",
-              flush=True)
-    print(f"  sharded s16: median realtime factor {float(np.median(rtfs)):.1f}"
-          f"x over {seconds:.2f} s of audio [{card}]", flush=True)
+    print("phase 4 (l): tools.ablate on corpus32's first chunk, one rep",
+          flush=True)
+    res = ablate.run_ablation(reps=1, device="cuda", log=lambda m: None)
+    names = [v[0] for v in ablate.variants()]
+    bad = [n for n in names
+           if not np.isfinite(res.get(n, {}).get("ms", np.nan))]
+    if list(res) != names or bad:
+        raise AssertionError(f"ablate: variants {list(res)} (want {names}), "
+                             f"no time for {bad}")
+    print(f"  every variant returned: {', '.join(names)}", flush=True)
 
 
-def time_entry_points(corpus, card):
-    """Phase 5: one s16 run's DecodeTimer timeline and its overlap, and
-    decode_file_batch's single-file latency."""
-    import numpy as np
+def _check_timer(decode_corpus, corpus):
+    """One s16 run with a caller's DecodeTimer: each chunk's marks present
+    and in order, and the timer's h2d and d2h byte counters equal to the
+    call's ``stats``."""
+    from vorbispizza_tpu_torch import DecodeTimer
 
-    from vorbispizza_tpu_torch import (
-        DecodeTimer,
-        decode_corpus,
-        decode_file_batch,
-    )
-    from vorbispizza_tpu_torch.testing.corpus32 import RECIPE
-
-    print("phase 5: one s16 run with a DecodeTimer (per-chunk marks, "
-          "seconds from the first)", flush=True)
     timer = DecodeTimer()
-    chunks = decode_corpus(corpus, device="cuda", output="s16",
-                           timer=timer).stats["chunks"]
+    stats = decode_corpus(corpus, device="cuda", output="s16",
+                          timer=timer).stats
     names = [n for n, _ in timer.events]
     at = dict(timer.events)
-    marks = ("merge0", "dispatch0", "dispatched", "pull_wait", "pull0",
-             "pull_done")
-    for k in range(chunks):
-        print(f"  c{k}: " + ", ".join(f"{m} {at[f'c{k}.{m}']:.4f}"
-                                      for m in marks))
-    overlap = [names.index(f"c{k}.merge0") < names.index(f"c{k - 1}.pull_done")
-               for k in range(1, chunks)]
-    print(f"  overlap: chunk k's merge began before chunk k-1's pull was "
-          f"done for {sum(overlap)} of {len(overlap)} chunks: {overlap} "
-          f"[{card}]", flush=True)
-    print("  timer " + json.dumps({"stages": timer.stages,
-                                   "counters": timer.counters,
-                                   "overlap": overlap}), flush=True)
-
-    print("phase 5: decode_file_batch(one corpus32 stream, device='cuda'): "
-          "one warm call, five timed", flush=True)
-    pcm = decode_file_batch(corpus[0], device="cuda")
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        decode_file_batch(corpus[0], device="cuda")
-        walls.append(time.perf_counter() - t0)
-    med = float(np.median(walls))
-    seconds = pcm.shape[1] / RECIPE["rate"]
-    print(f"  single-file latency: median {med:.4f} s over 5 calls "
-          f"({', '.join(f'{w:.4f}' for w in walls)}), {seconds:.2f} s of "
-          f"audio, {seconds / med:.1f}x realtime [{card}]", flush=True)
+    for k in range(stats["chunks"]):
+        keys = [f"c{k}.{m}" for m in MARKS]
+        if any(n not in at for n in keys):
+            raise AssertionError(f"timer: chunk {k} has marks "
+                                 f"{[n for n in keys if n in at]}")
+        order = [names.index(n) for n in keys]
+        times = [at[n] for n in keys]
+        if order != sorted(order) or times != sorted(times):
+            raise AssertionError(f"timer: chunk {k}'s marks out of order: "
+                                 f"{list(zip(keys, times))}")
+    counts = {n: timer.counters.get(n) for n in ("h2d_bytes", "d2h_bytes")}
+    if any(v != stats[n] for n, v in counts.items()):
+        raise AssertionError(f"timer: counters {counts} differ from stats")
+    print(f"  DecodeTimer: {stats['chunks']} chunks, each with its "
+          f"{len(MARKS)} marks in order; counters {json.dumps(counts)} equal "
+          f"to stats", flush=True)
 
 
 def _quantize(pcm, np):
@@ -1400,7 +1354,7 @@ def main() -> int:
     from vorbispizza_tpu_torch import decode_corpus, kernels, native
     from vorbispizza_tpu_torch.kernels import build
     from vorbispizza_tpu_torch.testing import floor0_32
-    from vorbispizza_tpu_torch.testing.corpus32 import audio_seconds, load_corpus
+    from vorbispizza_tpu_torch.testing.corpus32 import load_corpus
 
     corpus = load_corpus()
     # the floor0 corpus and the float64 anchors are made on CPU workers
@@ -1596,34 +1550,12 @@ def main() -> int:
           f"mean of 20 after a warm call) [{card}]", flush=True)
     for res in checks.values():
         _time(res)
-    f0_seconds = sum(p.shape[1] for p in f0_f32) / floor0_32.RECIPE["rate"]
-    for name, output, sources, seconds, settings in (
-            ("f32", "f32", corpus, audio_seconds(), {}),
-            ("s16", "s16", corpus, audio_seconds(), {}),
-            ("fallback_s16", "s16", corpus, audio_seconds(), FALLBACK),
-            ("floor0_f32", "f32", f0_corpus, f0_seconds, {})):
-        print(f"phase 5: {name} (output={output!r}): one warm run, three "
-              f"timed runs", flush=True)
-        with configured(**settings):
-            decode_corpus(sources, device="cuda", output=output)
-            rtfs = []
-            for rep in range(3):
-                t0 = time.perf_counter()
-                o = decode_corpus(sources, device="cuda", output=output)
-                wall = time.perf_counter() - t0
-                rtfs.append(seconds / wall)
-                print(f"  run {rep}: {wall:.4f} s, {rtfs[-1]:.1f}x realtime; "
-                      f"d2h {o.stats['d2h_bytes']} B; stages "
-                      f"{json.dumps(o.stats['stage_s'])} [{card}]",
-                      flush=True)
-            print(f"  {name}: median realtime factor {sorted(rtfs)[1]:.1f}x "
-                  f"over {seconds:.2f} s of audio [{card}]", flush=True)
-            if name == "s16":
-                prof = _profile_run(lambda: decode_corpus(
-                    sources, device="cuda", output=output))
-                _print_profile(name, prof, card)
-    time_entry_points(corpus, card)
-    time_scale_out(corpus, card)
+    print("phase 5: s16 (output='s16') under torch.profiler, after a warm "
+          "run with a DecodeTimer", flush=True)
+    _check_timer(decode_corpus, corpus)
+    prof = _profile_run(lambda: decode_corpus(corpus, device="cuda",
+                                              output="s16"))
+    _print_profile("s16", prof, card)
 
     keys = ("max_abs_err", "ms", "device_ms", "device_all_ms",
             "device_launches", "plain_ms", "bound_ms", "bound_by",

@@ -164,7 +164,7 @@ def test_s16_scalar_route_quantizes_the_anchor():
     from vorbispizza_tpu_torch.models.corpus import _scalar_fallback
 
     data = make_streams("mono")[0]
-    got = _scalar_fallback(data, "s16", True, torch.device("cpu"))
+    got = _scalar_fallback(data, "s16", True)
     r = VorbisReader(data)
     r.initialize()
     want = np.clip(np.rint(r.read_all(planar=True).astype(np.float64)

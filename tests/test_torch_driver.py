@@ -33,6 +33,7 @@ from vorbispizza_tpu_torch import (
 from vorbispizza_tpu_torch.decoder import CLIP_MAX, StreamDecoder
 from vorbispizza_tpu_torch.frames import build_plan, split_plan
 from vorbispizza_tpu_torch.models import corpus as torch_corpus
+from vorbispizza_tpu_torch.models import launch as torch_launch
 from vorbispizza_tpu_torch.models.pipeline import BatchSynthesizer
 from vorbispizza_tpu_torch.ogg.container import OggContainer
 from vorbispizza_tpu_torch.stats import StreamStats
@@ -118,7 +119,7 @@ def test_assemble_dpack_wire_unpacks_to_the_quantized_f32():
                                                     device="cpu")
     assert tag == "dpack" and total == pcm.shape[1]
     assert nbt == pcm_pack.wire_rows(out_len, synth.channels)
-    payload, widx, ch_ubit, _ = torch_corpus.pull_dpack(
+    payload, widx, ch_ubit, _ = torch_launch.pull_dpack(
         wire, synth.channels, out_len)
     q = pcm_pack.unpack_pcm(payload, widx, synth.channels, out_len, ch_ubit)
     want = np.clip(np.rint(pcm * np.float32(32768.0)), -32768, 32767)
@@ -410,7 +411,7 @@ def test_a_raising_stage_propagates_and_stops_the_pools(corpus, monkeypatch,
     if where == "dispatch":
         monkeypatch.setattr(BatchSynthesizer, "prepare_host", boom)
     else:
-        monkeypatch.setattr(torch_corpus, "_to_host", boom)
+        monkeypatch.setattr(torch_launch, "to_host", boom)
     with pytest.raises(RuntimeError, match=f"boom in the {where}"):
         decode_corpus(corpus, device="cpu")
     assert not pool_threads()

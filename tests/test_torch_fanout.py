@@ -64,7 +64,9 @@ def tallies(calls, stats):
 
 @pytest.fixture(scope="module")
 def corpus():
-    return load_corpus()
+    """The fewest corpus32 members that fill more than one chunk at the
+    default corpus_batch_bytes (5 fill the first)."""
+    return load_corpus()[:6]
 
 
 @pytest.fixture(scope="module")
@@ -76,9 +78,9 @@ def long7():
 
 @pytest.fixture(scope="module")
 def shorts():
-    """8 stereo 0.4 s members, each well under a 1 MiB chunk."""
+    """10 stereo 0.4 s members, each well under a 1 MiB chunk."""
     return [encode_vorbis(make_signal(2, 0.4, kind="music", seed=s),
-                          quality=0.3) for s in range(8)]
+                          quality=0.3) for s in range(10)]
 
 
 @pytest.mark.parametrize("n_cores, workers, units, want", [
@@ -99,10 +101,10 @@ def test_decode_threads_rule(monkeypatch, n_cores, workers, units, want):
     (8, 2, 4),
     (64, 1, 16),  # never more than the C++ default's 16
 ])
-def test_whole_streams_take_the_pool_share(corpus, spy, monkeypatch,
+def test_whole_streams_take_the_pool_share(shorts, spy, monkeypatch,
                                            n_cores, n_sources, want):
     cores(monkeypatch, n_cores)
-    outs = decode_corpus(corpus[:n_sources], device="cpu",
+    outs = decode_corpus(shorts[:n_sources], device="cpu",
                          n_workers=WORKERS)
     assert outs.stats["batched"] == n_sources
     assert [t for t, _ in spy] == [want] * n_sources
@@ -149,11 +151,11 @@ def test_whole_streams_keep_their_share_beside_pieces(shorts, long7, spy,
 @pytest.mark.parametrize("n_cores, n_sources, want", [
     (8, 4, 2), (16, 9, 2), (64, 1, 16),
 ])
-def test_sharded_pool_follows_the_rule(corpus, spy, monkeypatch, n_cores,
+def test_sharded_pool_follows_the_rule(shorts, spy, monkeypatch, n_cores,
                                        n_sources, want):
     cores(monkeypatch, n_cores)
     monkeypatch.setattr(VorbisConfig.default, "corpus_workers", WORKERS)
-    outs = decode_corpus_sharded(corpus[:n_sources],
+    outs = decode_corpus_sharded(shorts[:n_sources],
                                  Mesh(["cpu"] * 2, ("stream",)),
                                  output="f32")
     assert outs.stats["batched"] == n_sources
@@ -173,12 +175,13 @@ def test_front_end_on_the_callers_thread_keeps_the_default(corpus, spy,
 
 
 def test_fan_out_is_bit_neutral(corpus, monkeypatch):
-    """corpus32 decodes to the same PCM and stats at the pool's share of
-    the cores as at the C++ default's fan-out, forced; only the threads
-    differ."""
+    """corpus32's members, over two chunks, decode to the same PCM and
+    stats at the pool's share of the cores as at the C++ default's
+    fan-out, forced; only the threads differ."""
     share = torch_corpus.decode_threads(VorbisConfig.default.corpus_workers,
                                         len(corpus))
     ours = decode_corpus(corpus, device="cpu")
+    assert ours.stats["chunks"] > 1
     monkeypatch.setattr(torch_corpus, "decode_threads", lambda w, u: None)
     default = decode_corpus(corpus, device="cpu")
     assert len(ours) == len(default) == len(corpus)
@@ -212,7 +215,8 @@ def test_native_threads_per_decode_metric(shorts, monkeypatch, n_cores,
     counters."""
     cores(monkeypatch, n_cores)
     calls = [types.SimpleNamespace(stats=decode_corpus(
-        shorts, device="cpu", n_workers=WORKERS).stats) for _ in range(2)]
+        shorts[:8], device="cpu", n_workers=WORKERS).stats)
+        for _ in range(2)]
     assert _reader()(types.SimpleNamespace(calls=calls)) == want
     for c in calls:
         del c.stats["native_decodes"]

@@ -218,6 +218,51 @@ def test_sharded_equals_decode_corpus(prod_corpus, output):
             assert same_arrays(a, b)
 
 
+@pytest.mark.parametrize("output", ["s16", "f32", "device"])
+def test_both_drivers_share_the_front_end_stage(prod_corpus, monkeypatch,
+                                                output):
+    """A malformed source, one the batch planner rejects and good ones,
+    through decode_corpus and decode_corpus_sharded with on_error="none":
+    the same failed, scalar and batched counts, and the same PCM, the
+    scalar decoder's too."""
+    from vorbispizza_tpu_torch.frames import BatchUnsupported
+
+    rejected, real = prod_corpus[1], torch_corpus._front_end
+
+    def front_end(source):
+        if source is rejected:
+            raise BatchUnsupported("planted: this stream goes scalar")
+        return real(source)
+
+    monkeypatch.setattr(torch_corpus, "_front_end", front_end)
+    srcs = [b"not an ogg stream at all", *prod_corpus]
+    want = torch_corpus.decode_corpus(srcs, device="cpu", output=output,
+                                      on_error="none")
+    got = pc.decode_corpus_sharded(srcs, cpu_mesh(2), output=output,
+                                   on_error="none")
+    counts = ("failed", "scalar", "batched")
+    assert ([got.stats[k] for k in counts] == [want.stats[k] for k in counts]
+            == [1, 1, len(prod_corpus) - 1])
+    assert got[0] is None and want[0] is None
+    # the sharded driver's stage walls: decode_corpus's keys, and nonzero
+    # for the stages it runs (front_end from the front.wait spans)
+    stage_s = got.stats["stage_s"]
+    assert list(stage_s) == list(want.stats["stage_s"]) == list(
+        torch_corpus.STAGES)
+    ran = {"front_end", "merge", "prepare", "h2d", "dispatch"}
+    if output != "device":
+        ran |= {"d2h", "unpack"}
+    assert {k for k, v in stage_s.items() if v > 0} == ran
+    assert stage_s["prepare"] == pytest.approx(
+        sum(got.stats["shard_prepare_s"]))
+    for a, b in zip(got[1:], want[1:]):
+        if output == "device":
+            assert isinstance(a, torch.Tensor) and a.device.type == "cpu"
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert same_arrays(a, b)
+
+
 def test_sharded_mixed_setups_equal_decode_corpus(mixed_corpus):
     got = pc.decode_corpus_sharded(mixed_corpus, cpu_mesh(2), output="s16")
     want = torch_corpus.decode_corpus(mixed_corpus, device="cpu",

@@ -8,6 +8,7 @@ reader's and the accelerated decoder's ``device`` argument and a
 pure-Python Ogg pager in place of libogg's), so every comparison here is
 exact."""
 
+import ast
 import os
 import pathlib
 import re
@@ -77,6 +78,48 @@ def test_sources_have_no_jax_package_import():
         for i, line in enumerate(f.read_text().splitlines(), 1)
         if IMPORT_RE.match(line)
     ]
+    assert not bad, bad
+
+
+CORPUS = "vorbispizza_tpu_torch.models.corpus"
+
+
+def _imported(f: pathlib.Path, node: ast.ImportFrom) -> str:
+    """The absolute module an import-from line of ``f`` names."""
+    if not node.level:
+        return node.module or ""
+    package = f.relative_to(REPO).parts[:-1]
+    base = package[: len(package) - node.level + 1]
+    return ".".join((*base, *([node.module] if node.module else [])))
+
+
+def test_no_private_name_of_the_corpus_driver_is_imported():
+    """parallel/, tools/ and entry.py reach models/corpus.py through its
+    public names alone: no import of a _-prefixed name of it, and no
+    _-prefixed attribute read off the module where it is imported whole."""
+    files = (sorted((PKG / "parallel").rglob("*.py"))
+             + sorted((PKG / "tools").rglob("*.py")) + [PKG / "entry.py"])
+    bad = []
+    for f in files:
+        tree = ast.parse(f.read_text())
+        names = set()  # the names the corpus module is bound to in f
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                module = _imported(f, node)
+                for alias in node.names:
+                    if module == CORPUS and alias.name.startswith("_"):
+                        bad.append(f"{f.name}:{node.lineno}: {alias.name}")
+                    if f"{module}.{alias.name}" == CORPUS:
+                        names.add(alias.asname or alias.name)
+            elif isinstance(node, ast.Import):
+                names.update(a.asname for a in node.names
+                             if a.name == CORPUS and a.asname)
+        bad += [f"{f.name}:{node.lineno}: {node.value.id}.{node.attr}"
+                for node in ast.walk(tree)
+                if isinstance(node, ast.Attribute)
+                and isinstance(node.value, ast.Name)
+                and node.value.id in names and node.attr.startswith("_")]
+    assert len(files) > 8
     assert not bad, bad
 
 

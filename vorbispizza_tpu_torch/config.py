@@ -19,14 +19,8 @@ class VorbisConfig:
     # batch pipeline knobs
     use_native_frontend: bool = True  # C++ entropy decode when available
     corpus_workers: int = 8  # front-end thread pool size
-    # merged-chunk cap per execution (dense spectrum bytes). Swept for the
-    # JAX package on a TPU v5e (32x15s corpus): 6MB=123x, 12MB=165x, 24MB=183x,
-    # 48MB=53x (too few chunks to pipeline). Re-swept 2026-08-18 after
-    # exec got 4x faster (median rtf of 3): 24MB=345, 16MB=345, 12MB=240,
-    # 8MB=240 — the optimum did NOT shift down; per-call latency on the
-    # high-latency link punishes extra chunks more than overlap gains.
-    # 24MB balances per-chunk
-    # dispatch overhead against transfer/exec overlap granularity.
+    # merged-chunk cap per execution (dense spectrum bytes): larger chunks
+    # cost fewer dispatches, smaller ones overlap host and device finer
     corpus_batch_bytes: int = 24 << 20
     # s16 PCM wire format for host delivery (all lossless):
     #   "dpack"  — delta block-pack (ops/pcm_pack.py): second difference +
@@ -39,11 +33,11 @@ class VorbisConfig:
     #   "raw"    — int16 as-is
     s16_wire: str = "dpack"
     # rice mode inside the dpack wire: per-block k-bit plane + unary high
-    # parts, ~13% fewer d2h bytes on music but slower to pack (exec-only
-    # 1517x -> 1056x measured). "auto" enables it only when the measured
-    # d2h rate (utils/link.py) is below s16_rice_threshold_mbps — below
-    # that the byte saving outruns the exec cost, above it (PCIe/ICI)
-    # rice is a pure loss. "on"/"off" force it.
+    # parts, ~13% fewer d2h bytes on music but slower to pack. "auto"
+    # enables it only when the measured d2h rate (utils/link.py) is below
+    # s16_rice_threshold_mbps — below that the byte saving outruns the
+    # packing cost, above it (PCIe) rice is a pure loss. "on"/"off" force
+    # it.
     s16_rice: str = "auto"
     s16_rice_threshold_mbps: float = 90.0
     # floor1 wire format for the batch pipeline:

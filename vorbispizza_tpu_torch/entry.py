@@ -86,18 +86,15 @@ def example_streams(n: int, seconds: float) -> list[bytes]:
 
 
 def entry(device="cuda"):
-    """(fn, example_args): ``fn(*example_args)`` decodes a merged chunk of
-    two streams on ``device`` into the full-capacity dpack wire ("s16df",
+    """(fn, example_args): ``fn(*example_args)`` decodes the first chunk
+    decode_corpus merges of two short streams (both, under the default
+    chunk size) on ``device`` into the full-capacity dpack wire ("s16df",
     a u8 tensor whose first four bytes are the payload's byte count)."""
-    from .models.corpus import _front_end, _synthesizer_for, merge_streams
-    from .models.pipeline import upload
+    from .models.launch import upload
+    from .testing.chunks import first_merge
 
     dev = resolve_device(device)
-    fronts = [_front_end(c) for c in example_streams(2, 1.0)]
-    synth = _synthesizer_for(fronts[0][0], fronts[0][1])
-    for f in fronts[1:]:
-        synth.add_setup(f[0])
-    plan, buckets, _ = merge_streams([f[2:4] for f in fronts])
+    synth, plan, buckets, _ = first_merge(example_streams(2, 1.0))
     sig, host, _ = synth.prepare_host(plan, buckets, "s16df", device=dev)
     bufs, _ = upload(host, dev)
 

@@ -5,7 +5,8 @@ Port of vorbispizza_tpu/models/corpus.py ``decode_corpus``, on its
 structure:
 
 - Per-stream host front ends (Ogg demux + C++ entropy decode, which
-  releases the GIL) run on a thread pool. The main thread consumes them
+  releases the GIL) run on a thread pool (``FrontEnds``, shared with
+  decode_corpus_sharded). The main thread consumes them
   in input order and groups streams by channel count into chunks of at
   least ``max_batch_bytes`` of dense spectrum, exactly as the reference
   chunks, so the chunks and their sigs match it. A stream with more is
@@ -14,11 +15,12 @@ structure:
   each piece is a unit of the chunks, its PCM placed into the stream's
   answer.
 - ONE dispatch thread takes the chunks in submission order. For each it
-  merges the streams (``merge_streams``), packs the wire
-  (``BatchSynthesizer.prepare_host``), stages the nine host arrays in
-  pinned memory, sends them with non-blocking copies and launches the
-  synthesis, all on the device's dispatch stream, and records the
-  chunk's completion event. Chunks go round-robin over ``devices``.
+  merges the streams (``merge_streams``), then (models/launch.py) packs
+  the wire (``BatchSynthesizer.prepare_host``), stages the nine host
+  arrays in pinned memory, sends them with non-blocking copies and
+  launches the synthesis, all on the device's dispatch stream, and
+  records the chunk's completion event. Chunks go round-robin over
+  ``devices``.
 - A pool of three collectors waits on each chunk's own event, pulls its
   output (one pull at a time, under a lock, on the device's pull stream)
   and unpacks it, while the dispatch thread packs the next chunk and the
@@ -46,7 +48,6 @@ them.
 from __future__ import annotations
 
 import concurrent.futures as cf
-import contextlib
 import dataclasses
 import io
 import os
@@ -57,7 +58,7 @@ import torch
 
 from .. import native
 from ..config import VorbisConfig
-from ..decoder import CLIP_MAX, StreamDecoder
+from ..decoder import StreamDecoder
 from ..device import resolve_device
 from ..errors import InvalidDataError, VorbisError
 from ..frames import (
@@ -76,11 +77,11 @@ from ..frames import (
     split_bounds,
 )
 from ..ogg.container import OggContainer
-from ..ops import pcm_pack
 from ..reader import VorbisReader
 from ..setup.header import parse_comments, parse_ident, parse_setup_cached
 from ..utils import profiling
-from .pipeline import BatchSynthesizer, upload
+from .launch import hand_over, land, launch
+from .pipeline import BatchSynthesizer
 
 _SYNTH_CACHE: dict = {}
 _SYNTH_LOCK = threading.Lock()
@@ -121,6 +122,15 @@ def _synthesizer_for(setup, channels: int) -> BatchSynthesizer:
         else:
             synth.add_setup(setup)
         return synth
+
+
+def synthesizer_of(fronts) -> BatchSynthesizer:
+    """The process-wide synthesizer of these front ends' channel count (a
+    chunk's or a group's), every one of their setups registered with it."""
+    synth = _synthesizer_for(fronts[0][0], fronts[0][1])
+    for front in fronts[1:]:  # a cross-setup chunk
+        synth.add_setup(front[0])
+    return synth
 
 
 def _cores() -> int:
@@ -357,8 +367,9 @@ def merge_streams(items):
     return plan_m, out_buckets, pcm_lengths
 
 
-def _scalar_fallback(source, output: str, clip_samples: bool, device):
-    """Exact streaming decode of one source (BatchUnsupported streams)."""
+def _scalar_fallback(source, output: str, clip_samples: bool):
+    """Exact streaming decode of one source (BatchUnsupported streams):
+    host PCM, int16 for ``output="s16"``, else float32."""
     r = VorbisReader(
         source if isinstance(source, (str, bytes)) else bytes(source),
         clip_samples=clip_samples,
@@ -369,9 +380,89 @@ def _scalar_fallback(source, output: str, clip_samples: bool, device):
         return np.clip(
             np.rint(pcm.astype(np.float64) * 32768.0), -32768, 32767
         ).astype(np.int16)
-    if output == "device":
-        return torch.from_numpy(np.ascontiguousarray(pcm)).to(device)
     return pcm
+
+
+#: the front end of a source that raised VorbisError under on_error="none"
+_FAILED = object()
+
+
+class FrontEnds:
+    """The front-end stage of a corpus call (decode_corpus,
+    decode_corpus_sharded): a ``vp-front`` pool whose tasks record into
+    the call's ``spans`` under their stream's key s<i>, inside its
+    ``front`` span, each C++ decode of a whole stream on the pool's share
+    of the cores and a plan over ``split_bytes`` left Unextracted
+    (join_pool). Iterating yields (i, front) in input order (span
+    ``front.wait``); a source the batch planner rejects goes to
+    ``scalar(i)``, the float64 decoder (``stats["scalar"]``, its host PCM
+    in ``outs[i]``: ``place`` moves it for output "device"); a malformed
+    one raises, or under on_error="none" counts in ``stats["failed"]``."""
+
+    def __init__(self, sources, outs, spans, *, output: str, clip: bool,
+                 on_error: str, n_workers: int, split_bytes=None):
+        if output not in ("f32", "s16", "device"):
+            raise ValueError(f"output {output!r}: not 'f32', 's16' or "
+                             "'device'")
+        if on_error not in ("raise", "none"):
+            raise ValueError(f"on_error must be 'raise' or 'none', got "
+                             f"{on_error!r}")
+        self.sources, self.outs, self.spans = sources, outs, spans
+        self.output, self.clip, self.on_error = output, clip, on_error
+        self.pool = cf.ThreadPoolExecutor(
+            max_workers=n_workers, thread_name_prefix="vp-front",
+            initializer=join_pool,
+            initargs=(split_bytes, decode_threads(n_workers, len(sources))))
+
+    def submit(self, i, fn, *args):
+        """``fn(*args)`` as stream i's task -> its future: the result, None
+        (BatchUnsupported) or _FAILED (VorbisError, on_error="none")."""
+        return self.pool.submit(self._task, i, fn, args)
+
+    def _task(self, i, fn, args):
+        key = f"s{i}"
+        profiling.bind(self.spans, key)
+        try:
+            with self.spans("front", key):
+                return fn(*args)
+        except BatchUnsupported:
+            return None
+        except VorbisError:
+            if self.on_error == "raise":
+                raise
+            return _FAILED
+
+    def __iter__(self):
+        futs = [self.submit(i, _front_end, s)
+                for i, s in enumerate(self.sources)]
+        for i, fut in enumerate(futs):
+            with self.spans("front.wait", f"s{i}"):
+                front = fut.result()
+            if front is _FAILED:
+                self.spans.tally("failed")
+            elif front is None:
+                self.scalar(i)
+            else:
+                yield i, front
+
+    def scalar(self, i) -> None:
+        self.spans.tally("scalar")
+        try:
+            self.outs[i] = _scalar_fallback(
+                self.sources[i], "f32" if self.output == "device"
+                else self.output, self.clip)
+        except VorbisError:
+            if self.on_error == "raise":
+                raise
+            self.spans.tally("failed")
+
+    def place(self, dev) -> None:
+        """For output "device": the scalar decodes' host PCM to ``dev``, on
+        the caller's stream."""
+        if self.output == "device":
+            for i, o in enumerate(self.outs):
+                if isinstance(o, np.ndarray):
+                    self.outs[i] = torch.from_numpy(o).to(dev)
 
 
 class CorpusOutputs(list):
@@ -398,81 +489,6 @@ class CorpusOutputs(list):
     stats: dict
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """Copy ``t`` into pinned host memory (CUDA) or view it (CPU)."""
-    if t.device.type == "cpu":
-        return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t)
-    return host.numpy()
-
-
-def _host_empty(shape, dtype: torch.dtype, dev: torch.device) -> np.ndarray:
-    """An uninitialised host array, in pinned memory where ``dev`` is a
-    CUDA device: PyTorch's host allocator keeps such blocks for the next
-    call, as it keeps _to_host's, where fresh pageable pages would fault
-    in on first write."""
-    return torch.empty(shape, dtype=dtype,
-                       pin_memory=dev.type == "cuda").numpy()
-
-
-def pull_dpack(wire: torch.Tensor, channels: int, out_len: int):
-    """The dpack wire's header and width table, then its payload at the
-    exact size -> (payload u8 [nbytes], widx, ch_ubit, bytes copied). The
-    header is checked against the width table before the payload moves."""
-    nbt = pcm_pack.wire_rows(out_len, channels)
-    head = pcm_pack.wire_header_bytes(channels) + nbt
-    h = _to_host(wire[:head])
-    nb, plane_cap, ch_ubit, widx = pcm_pack.parse_header(h, nbt, channels)
-    pcm_pack.check_sections(nb, plane_cap, ch_ubit, widx,
-                            wire.shape[0] - head)
-    payload = _to_host(wire[head : head + nb])
-    return payload, widx, ch_ubit, head + nb
-
-
-_STREAMS: dict = {}
-_STREAMS_LOCK = threading.Lock()
-
-
-def _streams(dev: torch.device):
-    """(dispatch stream, pull stream) of a CUDA device, made once per
-    process; (None, None) for the CPU. Every chunk's tensors, and the
-    tables the shared synthesizers cache, are made on the one dispatch
-    stream of their device, so the caching allocator never gives a freed
-    block to one stream while another still reads it."""
-    if dev.type != "cuda":
-        return None, None
-    with _STREAMS_LOCK:
-        pair = _STREAMS.get(dev)
-        if pair is None:
-            pair = _STREAMS[dev] = (torch.cuda.Stream(dev),
-                                    torch.cuda.Stream(dev))
-        return pair
-
-
-@contextlib.contextmanager
-def _on(dev: torch.device, stream):
-    """Make ``dev`` and ``stream`` current for this thread (both are
-    thread-local in PyTorch, and every kernel launches on the current
-    stream); nothing for the CPU."""
-    if stream is None:
-        yield
-        return
-    with torch.cuda.device(dev), torch.cuda.stream(stream):
-        yield
-
-
-class _NullTimer:
-    def stage(self, name):
-        return contextlib.nullcontext()
-
-    def count(self, name, value):
-        pass
-
-    def mark(self, name):
-        pass
-
-
 @dataclasses.dataclass(slots=True)
 class _Member:
     """A stream decoded in pieces: its answer, allocated whole, each
@@ -483,29 +499,6 @@ class _Member:
     out: object
     at: list
     state: str = "ok"
-
-
-@dataclasses.dataclass(slots=True)
-class _Chunk:
-    """A dispatched chunk, handed from the dispatch thread to a collector
-    and to the main thread: its units (stream i, or piece k of stream i
-    as (i, k)) and their PCM lengths, its device
-    and pull stream, its sig, kept samples, device output, completion
-    event (None on the CPU), pinned staging copies and the key of the
-    stream whose front end closed it."""
-
-    cid: int
-    idx: list
-    lengths: list
-    dev: torch.device
-    pull: object
-    channels: int
-    sig: tuple
-    total: int
-    out: object
-    event: object
-    staged: object
-    cause: str
 
 
 def decode_corpus(
@@ -560,15 +553,12 @@ def decode_corpus(
     (key c<k>, chunk k; cause the s<i> whose front end closed the chunk);
     ``stitch`` (key s<i>) where a piece's PCM goes into its stream's
     answer, on a collector or, for ``output="device"``, the caller).
-    Without a timer no span is made and no thread clock read. A timer
-    lacking ``span`` or ``mark`` is wrapped (profiling.adapt): its
+    Without a timer no span is made and no thread clock read. Every
+    record goes through the call's one ``profiling.CallSpans``; a timer
+    lacking ``span`` or ``mark`` is wrapped there (profiling.adapt): its
     stages still flow. ``on_error``: "raise" propagates a
     malformed source's error; "none" leaves its slot None. An error of a
     dispatch or a collector propagates, after both pools have stopped."""
-    if output not in ("f32", "s16", "device"):
-        raise ValueError(f"output {output!r}: not 'f32', 's16' or 'device'")
-    if on_error not in ("raise", "none"):
-        raise ValueError(f"on_error must be 'raise' or 'none', got {on_error!r}")
     devs = [resolve_device(d) for d in (devices or [device])]
     cfg = VorbisConfig.default
     if n_workers is None:
@@ -581,7 +571,6 @@ def decode_corpus(
             raise ValueError(f"s16_wire {cfg.s16_wire!r} (not one of "
                              f"{list(S16_FORMATS)})")
         fmt = S16_FORMATS[cfg.s16_wire]
-    t = profiling.adapt(timer) if timer is not None else _NullTimer()
 
     outs = CorpusOutputs([None] * len(sources))
     stats = {"streams": len(sources), "batched": 0, "scalar": 0, "failed": 0,
@@ -593,49 +582,21 @@ def decode_corpus(
     outs.stats = stats
     lock = threading.Lock()  # stats: the three kinds of thread update it
     pull_lock = threading.Lock()  # one pull at a time: the link is one pipe
-    spans = profiling.CallSpans(None if timer is None else t, stats, lock)
-
-    def add(key, value):
-        with lock:
-            stats[key] += value
-
-    _FAILED = object()  # per-file failure sentinel (on_error="none")
-
-    def front_end_or_none(i, source):
-        key = f"s{i}"
-        profiling.bind(spans, key)
-        try:
-            with spans("front", key):
-                return _front_end(source)
-        except BatchUnsupported:
-            return None
-        except VorbisError:
-            if on_error == "raise":
-                raise
-            return _FAILED
+    spans = profiling.CallSpans(timer, stats, lock)
 
     members: dict = {}  # stream index -> _Member, for streams in pieces
     # a stream over this is cut into pieces of at most it
     piece_bytes = max(max_batch_bytes, MIN_PIECE_BYTES)
 
-    def piece_or_none(i, front, a, b, threads):
+    def piece(i, front, a, b, threads):
         """Frames [a, b) of stream i's plan as a piece, extracted on
         ``threads`` (a front-end worker)."""
-        key = f"s{i}"
-        profiling.bind(spans, key)
         setup, channels, plan, pending = front
-        try:
-            with spans("front", key), spans("front.split", key):
-                piece = plan_piece(plan, a, b)
-                return setup, channels, piece, extract_batch(
-                    piece, setup, channels, ident=pending.ident,
-                    n_threads=threads)
-        except BatchUnsupported:
-            return None
-        except VorbisError:
-            if on_error == "raise":
-                raise
-            return _FAILED
+        with spans("front.split", f"s{i}"):
+            part = plan_piece(plan, a, b)
+            return setup, channels, part, extract_batch(
+                part, setup, channels, ident=pending.ident,
+                n_threads=threads)
 
     def drop(i, state):
         """Take split stream i off its pieces; True the first time."""
@@ -648,9 +609,9 @@ def decode_corpus(
 
     def unit_scalar(u):
         if isinstance(u, int):
-            scalar(u)
+            fronts.scalar(u)
         elif drop(u[0], "scalar"):
-            scalar(u[0])
+            fronts.scalar(u[0])
 
     def stitch(u, pcm):
         """Place piece u's PCM into its stream's answer."""
@@ -658,126 +619,62 @@ def decode_corpus(
         m = members[i]
         with spans("stitch", f"s{i}"):
             at = m.at[k]
-            if isinstance(pcm, torch.Tensor):
-                m.out[:, at : at + pcm.shape[1]].copy_(pcm)
-            else:
-                m.out[:, at : at + pcm.shape[1]] = pcm
+            m.out[:, at : at + pcm.shape[1]] = pcm
 
-    def scalar(i):
-        # "device" output: the host PCM goes to the device on the main
-        # thread at the end, on the caller's stream
-        add("scalar", 1)
-        try:
-            outs[i] = _scalar_fallback(sources[i],
-                                       "f32" if output == "device" else output,
-                                       clip_samples, None)
-        except VorbisError:
-            if on_error == "raise":
-                raise
-            add("failed", 1)
-
-    lanes = {d: _streams(d) for d in devs}
     n_dispatched = 0  # the dispatch thread's alone
 
-    def dispatch(idx, fronts, cause):
-        """Merge, pack, send and launch one chunk (the dispatch thread)."""
+    def dispatch(idx, cause):
+        """Merge one chunk's units and send it to its device (the dispatch
+        thread) -> (units, PCM lengths, its Trip, its collector's future;
+        None for output="device"), or None where it went scalar."""
         nonlocal n_dispatched
         cid = n_dispatched
         n_dispatched += 1  # a chunk that goes scalar keeps its cid too
         ck = f"c{cid}"
-        t.mark(f"{ck}.merge0")
-        setup, channels = fronts[idx[0]][:2]
-        synth = _synthesizer_for(setup, channels)
-        for i in idx[1:]:  # cross-setup chunk: register every setup
-            synth.add_setup(fronts[i][0])
+        spans.mark(f"{ck}.merge0")
+        chunk = [fronts_by_idx[i] for i in idx]
+        synth = synthesizer_of(chunk)
         if batched:
             with spans("merge", ck, cause):
                 plan, buckets, lengths = merge_streams(
-                    [fronts[i][2:4] for i in idx])
+                    [f[2:4] for f in chunk])
         else:
-            plan, buckets = fronts[idx[0]][2:4]
+            plan, buckets = chunk[0][2:4]
             lengths = [plan.pcm_length]
+        del chunk
         for i in idx:
             # the merged copies exist now: corpus memory stays bounded by
             # the chunk size
-            del fronts[i]
+            del fronts_by_idx[i]
         if plan.n_frames == 0:
             # no decodable audio frame in the chunk: the scalar anchor is
             # authoritative for degenerate streams
             for u in idx:
                 unit_scalar(u)
             return None
-        dev = devs[cid % len(devs)]
-        stream, pull = lanes[dev]
         try:
-            with _on(dev, stream):
-                with spans("prepare", ck, cause):
-                    sig, host, total = synth.prepare_host(
-                        plan, buckets, fmt, device=dev)
-                with spans("h2d", ck, cause):
-                    bufs, staged = upload(host, dev)
-                h2d = sum(a.nbytes for a in host)
-                t.count("h2d_bytes", h2d)
-                t.mark(f"{ck}.dispatch0")
-                with spans("launch", ck, cause):
-                    out = synth(sig, bufs)
-                    event = None
-                    if stream is not None:
-                        event = torch.cuda.Event(blocking=True)
-                        event.record(stream)
-                t.mark(f"{ck}.dispatched")
+            trip = launch(synth, plan, buckets, fmt, devs[cid % len(devs)],
+                          spans, ck, cause)
         except BatchUnsupported:
             for u in idx:
                 unit_scalar(u)
             return None
+        spans.count("h2d_bytes", trip.h2d)
         with lock:
             stats["chunks"] += 1
             stats["batched"] += sum(isinstance(u, int) for u in idx)
-            stats["h2d_bytes"] += h2d
-        rec = _Chunk(cid=cid, idx=idx, lengths=lengths, dev=dev, pull=pull,
-                     channels=synth.channels, sig=sig, total=total, out=out,
-                     event=event, staged=staged, cause=cause)
-        fut = None if output == "device" else collect_pool.submit(finish, rec)
-        return rec, fut
+            stats["h2d_bytes"] += trip.h2d
+        fut = (None if output == "device"
+               else collect_pool.submit(finish, idx, lengths, trip))
+        return idx, lengths, trip, fut
 
-    def finish(rec):
-        """Wait for a chunk, pull and unpack it (a collector)."""
-        ck = f"c{rec.cid}"
-        if rec.event is not None:
-            with spans("wait", ck, rec.cause):
-                rec.event.synchronize()
-        rec.staged = None  # the chunk's copies have run
-        total = rec.total
-        t.mark(f"{ck}.pull_wait")
-        # the lock is taken outside the span, so the stage sums to the
-        # link's occupancy and not to the threads' wait for it
-        with pull_lock, spans("pull", ck, rec.cause):
-            t.mark(f"{ck}.pull0")
-            with _on(rec.dev, rec.pull):
-                if fmt == "s16df":
-                    host, widx, ch_ubit, moved = pull_dpack(
-                        rec.out, rec.channels, rec.sig[3])
-                else:
-                    host = _to_host(rec.out[..., :total].contiguous())
-                    moved = host.nbytes
-            add("d2h_bytes", moved)
-            t.count("d2h_bytes", moved)
-        rec.out = None
-        t.mark(f"{ck}.pull_done")
-        with spans("unpack", ck, rec.cause):
-            if fmt == "s16df":
-                pcm = pcm_pack.unpack_pcm(host, widx, rec.channels,
-                                          rec.sig[3], ch_ubit)[:, :total]
-            elif fmt == "s16p":
-                # byte planes [2, C, L] u8 -> int16, losslessly
-                pcm = (((host[1].astype(np.int32) << 8) | host[0])
-                       - 32768).astype(np.int16)
-            else:
-                if fmt == "f32" and clip_samples:
-                    np.clip(host, -CLIP_MAX, CLIP_MAX, out=host)
-                pcm = host
+    def finish(idx, lengths, trip):
+        """Wait for a chunk, pull and unpack it, and place its pieces (a
+        collector)."""
+        pcm, moved = land(trip, clip_samples, spans, pull_lock)
+        spans.count("d2h_bytes", moved)
         c = 0
-        for u, ln in zip(rec.idx, rec.lengths):
+        for u, ln in zip(idx, lengths):
             if isinstance(u, tuple):
                 stitch(u, pcm[:, c : c + ln])
             c += ln
@@ -793,8 +690,7 @@ def decode_corpus(
         acc[channels] = [[], 0]
         with lock:
             stats["chunk_bytes_max"] = max(stats["chunk_bytes_max"], nbytes)
-        dispatch_futs.append(dispatch_pool.submit(dispatch, units,
-                                                  fronts_by_idx, cause))
+        dispatch_futs.append(dispatch_pool.submit(dispatch, units, cause))
 
     def take(unit, front):
         """Add a unit to its channel count's open chunk; True where the
@@ -819,41 +715,44 @@ def decode_corpus(
         if output == "device":
             out = torch.empty(shape, dtype=torch.float32, device=devs[0])
         else:
-            out = _host_empty(shape, torch.int16 if output == "s16"
-                              else torch.float32, devs[0])
+            # pinned where the chunks come from a card: PyTorch's host
+            # allocator keeps such blocks for the next call, as it keeps
+            # the pulls', where fresh pages would fault in on first write
+            out = torch.empty(shape, dtype=torch.int16 if output == "s16"
+                              else torch.float32,
+                              pin_memory=devs[0].type == "cuda").numpy()
         m = members[i] = _Member(out, [])
-        add("split_streams", 1)
-        add("pieces", len(bounds))
+        spans.tally("split_streams")
+        spans.tally("pieces", len(bounds))
         # the pieces decode in the stream's place, among the call's others
         threads = decode_threads(n_workers, len(sources) + len(bounds) - 1)
-        pieces = [front_pool.submit(piece_or_none, i, front, a, b, threads)
+        pieces = [fronts.submit(i, piece, i, front, a, b, threads)
                   for a, b in bounds]
         at = 0
         for k, fut in enumerate(pieces):
             with spans("front.wait", f"s{i}"):
-                piece = fut.result()
+                part = fut.result()
             if m.state != "ok":
                 continue  # off its pieces: the rest are read and dropped
-            if piece is _FAILED:
+            if part is _FAILED:
                 if drop(i, "failed"):
-                    add("failed", 1)
+                    spans.tally("failed")
                 continue
-            if piece is None:
+            if part is None:
                 if drop(i, "scalar"):
-                    scalar(i)
+                    fronts.scalar(i)
                 continue
             m.at.append(at)
-            at += piece[2].pcm_length
-            fronts_by_idx[(i, k)] = piece
-            if take((i, k), piece) or k < len(pieces) - 1:
+            at += part[2].pcm_length
+            fronts_by_idx[(i, k)] = part
+            if take((i, k), part) or k < len(pieces) - 1:
                 close(channels, f"s{i}")
 
     with spans("call"):
-        front_pool = cf.ThreadPoolExecutor(
-            max_workers=n_workers, thread_name_prefix="vp-front",
-            initializer=join_pool,
-            initargs=(piece_bytes if batched else None,
-                      decode_threads(n_workers, len(sources))))
+        fronts = FrontEnds(sources, outs, spans, output=output,
+                           clip=clip_samples, on_error=on_error,
+                           n_workers=n_workers,
+                           split_bytes=piece_bytes if batched else None)
         # merge/prepare/dispatch run on ONE thread, in submission order
         # (chunk composition stays deterministic) while the main thread
         # goes on taking front ends; collectors pull and unpack behind
@@ -865,20 +764,10 @@ def decode_corpus(
         collect_pool = cf.ThreadPoolExecutor(max_workers=3,
                                              thread_name_prefix="vp-collect")
         try:
-            with t.stage("front_end"):
-                futs = [front_pool.submit(front_end_or_none, i, s)
-                        for i, s in enumerate(sources)]
-                # consume in SUBMISSION order so chunk composition is
+            with spans.stage("front_end"):
+                # in SUBMISSION order, so chunk composition is
                 # deterministic
-                for i, fut in enumerate(futs):
-                    with spans("front.wait", f"s{i}"):
-                        front = fut.result()
-                    if front is _FAILED:
-                        add("failed", 1)
-                        continue
-                    if front is None:
-                        scalar(i)
-                        continue
+                for i, front in fronts:
                     if isinstance(front[3], Unextracted):
                         split(i, front)
                         continue
@@ -889,20 +778,13 @@ def decode_corpus(
                 if units:  # closed by the end of the input: its last unit
                     last = units[-1]
                     close(channels, f"s{last if isinstance(last, int) else last[0]}")
-            with t.stage("collect"):
+            with spans.stage("collect"):
                 # ordered drain; propagates dispatch and collector errors
                 done = [r for r in (f.result() for f in dispatch_futs) if r]
-                for rec, fut in done:
-                    if fut is None:  # output="device"
-                        pcm = rec.out[:, :rec.total]
-                        if rec.event is not None:
-                            caller = torch.cuda.current_stream(rec.dev)
-                            caller.wait_event(rec.event)
-                            rec.out.record_stream(caller)
-                    else:
-                        pcm = fut.result()
+                for idx, lengths, trip, fut in done:
+                    pcm = hand_over(trip) if fut is None else fut.result()
                     c = 0
-                    for u, ln in zip(rec.idx, rec.lengths):
+                    for u, ln in zip(idx, lengths):
                         if isinstance(u, int):
                             outs[u] = pcm[:, c : c + ln]
                         elif fut is None:  # a collector stitched the others
@@ -911,14 +793,11 @@ def decode_corpus(
                 for i, m in members.items():
                     if m.state == "ok":
                         outs[i] = m.out
-                        add("batched", 1)
+                        spans.tally("batched")
         finally:
             # an error must not leave in-flight front ends, dispatches or
             # pulls running after decode_corpus returns
-            for pool in (front_pool, dispatch_pool, collect_pool):
+            for pool in (fronts.pool, dispatch_pool, collect_pool):
                 pool.shutdown(wait=True, cancel_futures=True)
-        if output == "device":
-            for i, o in enumerate(outs):
-                if isinstance(o, np.ndarray):  # a scalar-routed stream
-                    outs[i] = torch.from_numpy(o).to(devs[0])
+        fronts.place(devs[0])
     return outs

@@ -27,8 +27,9 @@ and every output of the reference:
        and the planes; K7 unary on a rice wire), into the one u8 wire
        buffer K4 began
 
-``BatchSynthesizer.assemble`` runs both halves for one plan on the
-current stream, and the stream-level drivers ``decode_stream_batch`` and
+``BatchSynthesizer.assemble`` runs both halves for one plan, through the
+round trip every driver shares (models/launch.py), and the stream-level
+drivers ``decode_stream_batch`` and
 ``decode_file_batch`` (the reference's, plus ``device``) decode one
 stream through it; the corpus driver is models/corpus.py.
 """
@@ -71,17 +72,22 @@ from ..ops.floor import (
 )
 from ..ops.imdct import dct_iv, dct_iv_basis
 from ..ops.ola import ola_assemble
-from ..ops.pcm_pack import dpack_wire, wire_buffer, wire_caps, wire_rows
+from ..ops.pcm_pack import (
+    DPACK,
+    dpack_wire,
+    wire_buffer,
+    wire_caps,
+    wire_rows,
+)
 from ..ops.residue_sym import bucket_table, expand_bucket, pack_bits
 from ..ops.residue_values import residue_gather
 from ..setup.mode import window_geometry
 from ..utils import profiling
 from ..utils.link import d2h_rate_estimate
+from .launch import hand_over, launch
 
 #: outputs of the fused body (models/pipeline.py _fused_body)
 OUTPUTS = ("f32", "s16", "s16p", "s16d", "s16df")
-#: the dpack wire outputs: soft ("s16d") and full ("s16df") capacity
-DPACK = ("s16d", "s16df")
 #: floor wire of a floor group -> its wrapper in ops.floor
 FLOORS = {"ys": floor1_from_ys, "posts": floor1_from_posts,
           "floor0": floor0_curves}
@@ -980,8 +986,9 @@ class BatchSynthesizer(nn.Module):
 
     def assemble(self, plan: FramePlan, buckets: list[BucketBatch],
                  output: str = "f32", device="cuda"):
-        """prepare_host + upload + forward of one plan on ``device``, on
-        the current stream. Returns, on the device, the kept samples
+        """prepare_host, upload and forward of one plan on ``device``'s
+        dispatch stream (models/launch.py), which the current stream then
+        waits for. Returns, on the device, the kept samples
         ``out[..., :total]``, or for the dpack wires ("s16d", "s16df")
         ("dpack", wire, nbt, out_len, total), as the reference's
         ``BatchSynthesizer.run`` does; [C, 0] zeros for no buckets."""
@@ -989,13 +996,13 @@ class BatchSynthesizer(nn.Module):
         if not buckets:
             dt = torch.int16 if output == "s16" else torch.float32
             return torch.zeros((self.channels, 0), dtype=dt, device=dev)
-        sig, host, total = self.prepare_host(plan, buckets, output,
-                                             device=dev)
-        out = self(sig, upload(host, dev)[0])
+        rec = profiling.CallSpans()
+        trip = launch(self, plan, buckets, output, dev, rec)
+        out = hand_over(trip)
         if output in DPACK:
-            return ("dpack", out, wire_rows(sig[3], self.channels), sig[3],
-                    total)
-        return out[..., :total]
+            L = trip.sig[3]
+            return ("dpack", out, wire_rows(L, self.channels), L, trip.total)
+        return out
 
 
 _PTAG_ORDER = {"u8b": 0, "i16": 1, "f32": 2}
@@ -1045,27 +1052,6 @@ def merge_pads(sigs) -> dict:
             else:
                 out[k] = max(out.get(k, 0), v)
     return out
-
-
-def upload(arrays, device: torch.device):
-    """Host numpy arrays -> (tensors on ``device``, their pinned staging
-    copies). On the CPU the tensors are views and nothing is staged. For
-    CUDA each array is copied into pinned memory and sent with a
-    non-blocking copy on the current stream, so the host goes on while
-    the copies run; the staging copies are returned so a caller can hold
-    them until the stream has passed the copies (PyTorch's pinned
-    allocator holds a freed block until then too). The staging copy is
-    numpy's, on the calling thread: PyTorch's would wake its CPU thread
-    pool, whose threads then spin for each chunk."""
-    if device.type == "cpu":
-        return [torch.from_numpy(a) for a in arrays], []
-    staged = []
-    for a in arrays:
-        p = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
-                        pin_memory=True)
-        np.copyto(p.numpy(), a)
-        staged.append(p)
-    return [p.to(device, non_blocking=True) for p in staged], staged
 
 
 def device_tables(synth: BatchSynthesizer, key, device) -> dict:

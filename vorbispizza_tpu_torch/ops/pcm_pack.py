@@ -68,6 +68,9 @@ UNARY_ROW_WORDS_SOFT = 32
 SOFT_UNARY_WORDS_PER_BLOCK = 12
 #: nbytes sentinel of a wire whose unary deposit overflowed its row cap
 ROW_OVER_NBYTES = 0x7FFFFFF0
+#: the fused body's outputs that are this wire: soft ("s16d") and full
+#: ("s16df") capacity
+DPACK = ("s16d", "s16df")
 #: larger than any real block cost (<= 2^27 bits)
 INF = 1 << 29
 

@@ -19,14 +19,15 @@ no-ops by construction. If the sigs still disagree, ShardMismatch sends
 the group to the reference's per-device dispatch, which the port counts
 (``stats["mismatch_fallbacks"]``).
 
-There is no SPMD program in the port. Each shard's nine host buffers go
-to its own mesh device (``pipeline.upload``), and
-``BatchSynthesizer.forward`` runs there on the device's dispatch stream
-(models/corpus.py ``_streams``/``_on``), with a completion event a shard.
-A mesh may repeat a device; its shards then run one after another on the
-device's one stream. A shard with no streams is not launched. The
-reference's ``psum`` of each shard's packed wire size is the sum of the
-shards' header nbytes (``stats["wire_bytes"]``).
+There is no SPMD program in the port. Each shard takes the round trip of
+models/launch.py, as decode_corpus's chunks do: its nine host buffers go
+to its own mesh device, ``BatchSynthesizer.forward`` runs there on the
+device's dispatch stream with a completion event a shard, and its output
+comes back on the device's pull stream. A mesh may repeat a device; its
+shards then run one after another on the device's one stream. A shard
+with no streams is not launched. The reference's ``psum`` of each
+shard's packed wire size is the sum of the shards' header nbytes
+(``stats["wire_bytes"]``).
 
 Departure from the reference: like the port's ``decode_corpus``, the
 dpack wire is always the full-capacity "s16df" (at most 288 B per
@@ -37,32 +38,20 @@ a wire that fails its checks raises.
 
 from __future__ import annotations
 
-import concurrent.futures as cf
-
 import numpy as np
-import torch
 
 from ..config import VorbisConfig
-from ..decoder import CLIP_MAX
-from ..errors import VorbisError
 from ..frames import BatchUnsupported, BucketBatch, FloorGroup, SymBucket
 from ..models.corpus import (
     STAGES,
     CorpusOutputs,
-    _front_end,
-    _on,
-    _scalar_fallback,
-    _streams,
-    _synthesizer_for,
-    _to_host,
-    decode_threads,
-    join_pool,
+    FrontEnds,
     merge_streams,
-    pull_dpack,
+    synthesizer_of,
 )
-from ..models.pipeline import DPACK, merge_pads, upload
-from ..ops.pcm_pack import unpack_pcm
-from ..utils.profiling import CallSpans, DecodeTimer, adapt, bind
+from ..models.launch import Trip, hand_over, land, lanes, launch, prepare, send
+from ..models.pipeline import merge_pads
+from ..utils.profiling import CallSpans
 
 __all__ = [
     "ShardMismatch",
@@ -192,7 +181,7 @@ def sharded_chunk_run(synth, shard_items, mesh, output: str = "s16df",
     shard k's device output (None for a shard with no streams, which is
     not launched) and ``events[k]`` its completion event on the device's
     dispatch stream (None on the CPU); unpack each with unpack_shard once
-    its event has passed. Spans on ``timer`` (a DecodeTimer when None):
+    its event has passed. Spans on ``timer``, where one is given:
     ``merge``, and for shard k (key shard<k>) ``prepare``, ``h2d`` and
     ``launch``. ``stats`` (decode_corpus_sharded's) gets the spans' walls
     in its stages, and each shard's ``prepare`` walls summed in
@@ -202,7 +191,7 @@ def sharded_chunk_run(synth, shard_items, mesh, output: str = "s16df",
         raise ShardMismatch(
             f"{len(shard_items)} shards for a {len(devs)}-device mesh"
         )
-    spans = CallSpans(DecodeTimer() if timer is None else timer, stats)
+    spans = CallSpans(timer, stats)
     with spans("merge"):
         merged = [
             merge_streams(items) if items else (_empty_plan(), [], [])
@@ -211,91 +200,40 @@ def sharded_chunk_run(synth, shard_items, mesh, output: str = "s16df",
         blists = _unify_buckets(merged)
     secs = [0.0] * len(devs)
 
-    def prepare(pads):
-        preps = []
+    def prepare_all(pads):
+        trips = []
         for k, ((plan, _, _), bl, dev) in enumerate(zip(merged, blists,
                                                         devs)):
-            with spans("prepare", f"shard{k}") as sp:
-                preps.append(synth.prepare_host(plan, bl, output, pads=pads,
-                                                device=dev))
-            secs[k] += sp.wall_s
-        return preps
+            trips.append(prepare(synth, plan, bl, output, dev, spans,
+                                 f"shard{k}", pads=pads))
+            secs[k] += trips[-1].prepare_s or 0.0
+        return trips
 
-    preps = prepare({})
-    sigs = [p[0] for p in preps]
+    trips = prepare_all({})
+    sigs = [t.sig for t in trips]
     if len(set(sigs)) > 1:
-        preps = prepare(merge_pads(sigs))
-        sigs = [p[0] for p in preps]
+        trips = prepare_all(merge_pads(sigs))
+        sigs = [t.sig for t in trips]
     if stats is not None:
         stats["shard_prepare_s"] += secs
     if len(set(sigs)) > 1:
         raise ShardMismatch("shard sigs did not unify under max pads")
-    sig = sigs[0]
-    outs, events = [], []
-    for k, (items, (_, host, _), dev) in enumerate(zip(shard_items, preps,
-                                                       devs)):
-        out = event = None
+    for items, trip in zip(shard_items, trips):
         if items:
-            stream, _ = _streams(dev)
-            with _on(dev, stream):
-                with spans("h2d", f"shard{k}"):
-                    bufs = upload(host, dev)[0]
-                with spans("launch", f"shard{k}"):
-                    out = synth(sig, bufs)
-                if stream is not None:
-                    event = torch.cuda.Event(blocking=True)
-                    event.record(stream)
-        outs.append(out)
-        events.append(event)
-    totals = [p[2] for p in preps]
-    lens = [m[2] for m in merged]
-    return sig, outs, totals, lens, events
+            send(synth, trip, spans)
+    return (sigs[0], [t.out for t in trips], [t.total for t in trips],
+            [m[2] for m in merged], [t.event for t in trips])
 
 
-def unpack_shard(row: torch.Tensor, sig, channels: int, total: int,
+def unpack_shard(row, sig, channels: int, total: int,
                  stats: dict | None = None, timer=None) -> np.ndarray:
     """One shard's device output -> host PCM [C, total] (int16 for dpack,
     else the row's dtype), pulled on the current stream. ``stats`` gets
     the bytes copied ("d2h_bytes"), for dpack the wire's payload bytes
-    ("wire_bytes"), and the walls of the spans ``pull`` and ``unpack``
-    (on ``timer``, where one is given)."""
-    spans = CallSpans(timer, stats)
-    if sig[5] in DPACK:
-        with spans("pull"):
-            payload, widx, ch_ubit, moved = pull_dpack(row, channels, sig[3])
-        with spans("unpack"):
-            pcm = unpack_pcm(payload, widx, channels, sig[3],
-                             ch_ubit)[:, :total]
-        wire = payload.nbytes
-    else:
-        with spans("pull"):
-            pcm = _to_host(row[..., :total].contiguous())
-        moved, wire = pcm.nbytes, 0
-    if stats is not None:
-        stats["d2h_bytes"] += moved
-        stats["wire_bytes"] += wire
-    return pcm
-
-
-def _land(out, event, dev, sig, channels, total, output, stats, timer):
-    """A launched output -> what ``output`` asks for: a [C, total] device
-    view the caller's current stream waits for ("device"), or host PCM
-    pulled on the device's pull stream after the event (f32 clipped, as
-    the scalar fallback's)."""
-    if output == "device":
-        if event is not None:
-            caller = torch.cuda.current_stream(dev)
-            caller.wait_event(event)
-            out.record_stream(caller)
-        return out[..., :total]
-    if event is not None:
-        with CallSpans(timer, stats)("wait"):
-            event.synchronize()
-    with _on(dev, _streams(dev)[1]):
-        pcm = unpack_shard(out, sig, channels, total, stats, timer)
-    if pcm.dtype == np.float32:
-        np.clip(pcm, -CLIP_MAX, CLIP_MAX, out=pcm)
-    return pcm
+    ("wire_bytes"), each where it has the key, and the walls of the spans
+    ``pull`` and ``unpack`` (on ``timer``, where one is given)."""
+    trip = Trip(None, None, row.device, channels, sig, total, out=row)
+    return land(trip, False, CallSpans(timer, stats))[0]
 
 
 def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
@@ -316,12 +254,15 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
     threads they were given, summed: each takes the cores shared among
     the workers, models/corpus.decode_threads), ``stage_s`` (host
     wall seconds of models/corpus.py's STAGES, one after another here, the
-    walls of the spans of utils/profiling.SPAN_STAGES) and
+    walls of the spans of utils/profiling.SPAN_STAGES: ``front_end`` sums
+    the streams' ``front.wait`` spans, as in decode_corpus, and leaves out
+    the scalar decodes; the per-device fallback adds its unkeyed
+    ``prepare``, ``h2d`` and ``launch`` walls) and
     ``shard_prepare_s`` (each launched group's prepare_host seconds a
-    shard, from its ``prepare`` spans keyed shard<k>). ``timer``: a
-    DecodeTimer to keep the spans (sharded_chunk_run's, the front-end
-    wait ``front.wait``, and ``wait``, ``pull``, ``unpack``); without one
-    they go to a timer of the call's own.
+    shard, the walls of its ``prepare`` spans keyed shard<k>). A long
+    stream is decoded whole. ``timer``: a DecodeTimer to keep the spans
+    (decode_corpus's front-end spans, sharded_chunk_run's, and ``wait``,
+    ``pull``, ``unpack``).
 
     ``output``:
       "s16"    — host int16 [C, samples] (dpack wire, device quantize)
@@ -338,13 +279,8 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
     Degradation note: a stream the batch planner rejects falls back to the
     float64 scalar decoder, whose s16 quantization can differ from the
     device-f32 batch path by ±1 LSB."""
-    if output not in ("f32", "s16", "device"):
-        raise ValueError(f"output {output!r}: not 'f32', 's16' or 'device'")
-    if on_error not in ("raise", "none"):
-        raise ValueError(f"on_error must be 'raise' or 'none', got {on_error!r}")
-    dev0 = mesh.devices.reshape(-1)[0]
+    devs = list(mesh.devices.reshape(-1))
     fmt = "s16df" if output == "s16" else "f32"
-    timer = DecodeTimer() if timer is None else adapt(timer)
     outs = CorpusOutputs([None] * len(sources))
     stats = {"streams": len(sources), "groups": 0, "shards": 0, "batched": 0,
              "scalar": 0, "failed": 0, "mismatch_fallbacks": 0,
@@ -352,112 +288,72 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16",
              "native_threads": 0, "stage_s": dict.fromkeys(STAGES, 0.0),
              "shard_prepare_s": []}
     outs.stats = stats
-
-    def scalar_or_failed(i):
-        stats["scalar"] += 1
-        try:
-            return _scalar_fallback(sources[i], output, True, dev0)
-        except VorbisError:
-            if on_error == "raise":
-                raise
-            stats["failed"] += 1
-            return None
-
-    def front_end(src):
-        try:
-            return _front_end(src)
-        except BatchUnsupported:
-            return None
-        except VorbisError as e:
-            if on_error == "raise":
-                raise
-            return e
-
-    n_workers = VorbisConfig.default.corpus_workers
-    threads = decode_threads(n_workers, len(sources))
     spans = CallSpans(timer, stats)
 
-    def worker():
-        join_pool(None, threads)
-        bind(spans)  # the front-end stages and the decodes' counts
+    def landed(trip):
+        if output == "device":
+            return hand_over(trip)
+        return land(trip, True, spans)[0]
 
-    fronts: dict = {}
+    fronts = FrontEnds(sources, outs, spans, output=output, clip=True,
+                       on_error=on_error,
+                       n_workers=VorbisConfig.default.corpus_workers)
+    by_idx: dict = {}
     groups: dict = {}
-    with cf.ThreadPoolExecutor(n_workers, thread_name_prefix="vp-front",
-                               initializer=worker) as pool, \
-            spans("front.wait"):
-        for i, front in enumerate(pool.map(front_end, sources)):
-            if isinstance(front, VorbisError):
-                stats["failed"] += 1  # slot stays None
-                continue
-            if front is None:
-                outs[i] = scalar_or_failed(i)
-                continue
-            fronts[i] = front
+    try:
+        for i, front in fronts:
+            by_idx[i] = front
             # group by channel count only — bucket keys carry setup
             # identity (BucketKey.sid)
             groups.setdefault(front[1], []).append(i)
+    finally:
+        fronts.pool.shutdown(wait=True, cancel_futures=True)
 
     n_shards = mesh.size
     for channels, idxs in groups.items():
-        synth = _synthesizer_for(fronts[idxs[0]][0], channels)
-        for i in idxs[1:]:
-            synth.add_setup(fronts[i][0])
-        costs = [fronts[i][2].n_frames for i in idxs]
+        synth = synthesizer_of([by_idx[i] for i in idxs])
+        costs = [by_idx[i][2].n_frames for i in idxs]
         if sum(costs) == 0:
             # no decodable audio frames anywhere in this group (e.g.
             # headers-only streams): the scalar anchor is authoritative
             for i in idxs:
-                outs[i] = scalar_or_failed(i)
+                fronts.scalar(i)
             continue
         stats["groups"] += 1
         parts = partition_indices(costs, n_shards)
-        shard_items = [[fronts[idxs[j]][2:4] for j in part] for part in parts]
+        shard_items = [[by_idx[idxs[j]][2:4] for j in part] for part in parts]
         try:
             sig, souts, totals, lens, events = sharded_chunk_run(
                 synth, shard_items, mesh, fmt, stats, timer)
         except (ShardMismatch, BatchUnsupported):
+            # the reference's per-device dispatch: a stream at a time on
+            # the first mesh device
             stats["mismatch_fallbacks"] += 1
             for i in sorted(idxs[j] for part in parts for j in part):
-                outs[i] = _per_device(synth, fronts[i][2:4], dev0, fmt,
-                                      output, stats, timer, lambda i=i:
-                                      scalar_or_failed(i))
+                plan, buckets = by_idx[i][2:4]
+                try:
+                    trip = (launch(synth, plan, buckets, fmt, devs[0], spans)
+                            if plan.n_frames else None)
+                except BatchUnsupported:
+                    trip = None
+                if trip is None:  # the scalar anchor, as for a group
+                    fronts.scalar(i)
+                    continue
+                stats["batched"] += 1
+                outs[i] = landed(trip)
             continue
         stats["batched"] += len(idxs)
         for k, part in enumerate(parts):
             if not part:
                 continue
             stats["shards"] += 1
-            dev = mesh.devices.reshape(-1)[k]
-            pcm = _land(souts[k], events[k], dev, sig, channels, totals[k],
-                        output, stats, timer)
+            pcm = landed(Trip(f"shard{k}", None, devs[k], channels, sig,
+                              totals[k], out=souts[k], event=events[k],
+                              pull=lanes(devs[k])[1]))
             souts[k] = None
             c = 0
             for j, ln in zip(part, lens[k]):
                 outs[idxs[j]] = pcm[:, c : c + ln]
                 c += ln
+    fronts.place(devs[0])
     return outs
-
-
-def _per_device(synth, item, dev, fmt, output, stats, timer, scalar):
-    """One stream through prepare_host and forward on ``dev`` (the
-    reference's per-device dispatch after a ShardMismatch); the scalar
-    decoder where the batch planner rejects it or it has no audio frame."""
-    plan, buckets = item
-    if plan.n_frames == 0:
-        return scalar()
-    stream, _ = _streams(dev)
-    try:
-        with _on(dev, stream):
-            sig, host, total = synth.prepare_host(plan, buckets, fmt,
-                                                  device=dev)
-            out = synth(sig, upload(host, dev)[0])
-            event = None
-            if stream is not None:
-                event = torch.cuda.Event(blocking=True)
-                event.record(stream)
-    except BatchUnsupported:
-        return scalar()
-    stats["batched"] += 1
-    return _land(out, event, dev, sig, synth.channels, total, output, stats,
-                 timer)

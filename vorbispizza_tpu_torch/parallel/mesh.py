@@ -10,8 +10,8 @@ neighbour: one frame of halo.
 
 There is no SPMD program here. A ``Mesh`` is a grid of torch devices, and
 a device may repeat (that is how one card, or the CPU, carries a mesh).
-Each shard runs on its device's dispatch stream (models/corpus.py
-``_streams``): K2's posts mode (ops/floor.py ``floor1_from_posts``), K3
+Each shard runs on its device's dispatch stream (models/launch.py
+``lanes``): K2's posts mode (ops/floor.py ``floor1_from_posts``), K3
 (ops/coupling.py ``couple_spectrum``, which multiplies by the floor),
 then the DCT-IV ``torch.matmul`` and the window. The halo (the
 reference's ``ppermute``) is the left neighbour's last frame, taken on
@@ -32,7 +32,7 @@ import torch
 
 from ..decoder import CLIP_MAX
 from ..device import resolve_device
-from ..models.corpus import _on, _streams
+from ..models.launch import lanes, on
 from ..ops.coupling import couple_spectrum
 from ..ops.floor import floor1_from_posts, floor1_tables, inverse_db_tables
 from ..ops.imdct import dct_iv, dct_iv_basis
@@ -180,8 +180,8 @@ def sharded_decode_step(
         frames = np.empty((ns, nf), dtype=object)
         done = np.empty((ns, nf), dtype=object)
         for (i, j), dev in np.ndenumerate(devs):
-            stream, _ = _streams(dev)
-            with _on(dev, stream):
+            stream, _ = lanes(dev)
+            with on(dev, stream):
                 frames[i, j] = frames_of(residues[i, j], posts[i, j],
                                          step2[i, j], used[i, j], dev)
                 if stream is not None:
@@ -191,8 +191,8 @@ def sharded_decode_step(
         clip = np.empty((ns, nf), dtype=object)
         lapped = np.empty((ns, nf), dtype=object)
         for (i, j), dev in np.ndenumerate(devs):
-            stream, _ = _streams(dev)
-            with _on(dev, stream):
+            stream, _ = lanes(dev)
+            with on(dev, stream):
                 fr = frames[i, j]
                 S, F, C, _ = fr.shape
                 if j == 0:
@@ -210,8 +210,8 @@ def sharded_decode_step(
                     lapped[i, j] = torch.cuda.Event()
                     lapped[i, j].record(stream)
         dev0 = devs.flat[0]
-        stream0, _ = _streams(dev0)
-        with _on(dev0, stream0):
+        stream0, _ = lanes(dev0)
+        with on(dev0, stream0):
             rows = [torch.cat([_fetch(pcm[i, j], lapped[i, j], dev0, stream0)
                                for j in range(nf)], dim=1)
                     for i in range(ns)]
@@ -254,8 +254,8 @@ def shard_inputs(mesh: Mesh, residues, posts, step2, used):
     s, f = S // ns, F // nf
     out = [np.empty((ns, nf), dtype=object) for _ in host]
     for (i, j), dev in np.ndenumerate(mesh.devices):
-        stream, _ = _streams(dev)
-        with _on(dev, stream):
+        stream, _ = lanes(dev)
+        with on(dev, stream):
             for o, a in zip(out, host):
                 block = a[i * s : (i + 1) * s, j * f : (j + 1) * f]
                 o[i, j] = torch.from_numpy(np.ascontiguousarray(block)).to(dev)

@@ -1,12 +1,13 @@
 """The first merged chunk that ``decode_corpus`` forms from a list of
 streams, prepared on the host: the inputs of the kernel checks in
-``chip_smoke.py``, of the stage ablation (tools/ablate.py) and of the CPU
-tests that follow one chunk through the device half."""
+``chip_smoke.py``, of the stage ablation (tools/ablate.py), of
+``entry.entry`` and of the CPU tests that follow one chunk through the
+device half."""
 
 from __future__ import annotations
 
 from ..config import VorbisConfig
-from ..models.corpus import _front_end, _synthesizer_for, merge_streams
+from ..models.corpus import _front_end, merge_streams, synthesizer_of
 
 
 def first_merge(srcs):
@@ -18,11 +19,8 @@ def first_merge(srcs):
         cost += sum(b.batch_cost for b in fronts[-1][3])
         if cost >= VorbisConfig.default.corpus_batch_bytes:
             break
-    synth = _synthesizer_for(fronts[0][0], fronts[0][1])
-    for f in fronts:
-        synth.add_setup(f[0])
     plan, buckets, lengths = merge_streams([f[2:4] for f in fronts])
-    return synth, plan, buckets, lengths
+    return synthesizer_of(fronts), plan, buckets, lengths
 
 
 def first_chunk(srcs, output: str = "f32"):

@@ -126,8 +126,7 @@ def run_ablation(reps: int = 5, device="cuda", corpus=None, log=print):
     Returns {name: {"ms": per chunk call, "realtime": audio seconds a
     wall second, "delta_ms": the full run's ms minus this one's}}."""
     from ..device import resolve_device
-    from ..models.corpus import _on, _streams
-    from ..models.pipeline import upload
+    from ..models.launch import lanes, on, upload
     from ..reader import VorbisReader
     from ..testing.chunks import first_merge
 
@@ -141,9 +140,9 @@ def run_ablation(reps: int = 5, device="cuda", corpus=None, log=print):
     reader.initialize()
     audio_s = sum(lengths) / reader.sample_rate
     table = variants()
-    stream, _ = _streams(dev)
+    stream, _ = lanes(dev)
     results = {}
-    with _on(dev, stream):
+    with on(dev, stream):
         wire = {}
         for output in {v[1] for v in table}:
             sig, host, _ = synth.prepare_host(plan, buckets, output,

@@ -4,9 +4,10 @@ device trace.
 Port of vorbispizza_tpu/utils/profiling.py. ``DecodeTimer`` keeps the
 reference's stage walls, counters and marks, and adds spans (``span``):
 each a named, keyed interval of one thread with that thread's CPU time.
-``CallSpans`` is one decode call's accounting at each boundary of its
-work: the span on the call's timer, and the boundary's host wall in the
-call's ``stats["stage_s"]``. ``device_trace`` records with
+``CallSpans`` is one decode call's one recorder: at each boundary of its
+work the span on the call's timer and the boundary's host wall in the
+call's ``stats["stage_s"]``; the timer's marks, counters and whole-stage
+walls; nothing on a timer where the call has none. ``device_trace`` records with
 ``torch.profiler`` (host and, where CUDA is present, device activity)
 instead of the JAX profiler:
 
@@ -252,19 +253,41 @@ def adapt(timer):
     return _Adapter(timer)
 
 
-class CallSpans:
-    """One decode call's accounting at each boundary of its work.
+class _Wall:
+    """A boundary's wall where the call has no timer: added to its stage
+    on exit and kept as ``wall_s``, as a span keeps its own."""
 
-    ``rec(name, key, cause)`` is the boundary's context: with a timer
+    __slots__ = ("rec", "stage", "t0", "wall_s")
+
+    def __init__(self, rec, stage):
+        self.rec = rec
+        self.stage = stage
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.wall_s = time.perf_counter() - self.t0
+        with self.rec.lock:
+            self.rec.stage_s[self.stage] += self.wall_s
+
+
+class CallSpans:
+    """One decode call's one recorder.
+
+    ``rec(name, key, cause)`` is a boundary's context: with a timer
     (DecodeTimer, or a caller's timer passed through ``adapt``) it records
     the span there, yielding it; and where SPAN_STAGES names the span's
     stage, the span's wall goes into ``stats["stage_s"]``. Without a timer
-    it is only that wall (read with ``time.perf_counter``), or the shared
-    no-op: no span, no thread clock. ``tally`` counts into ``stats``
+    it is only that wall (yielded, as ``wall_s``), or the shared no-op: no
+    span, no thread clock. ``stage``, ``mark`` (None marks nothing) and
+    ``count`` are the timer's whole-stage walls, marks and counters, or
+    nothing without one. ``tally`` counts into ``stats``
     (``stats["builds"]`` for the kinds of BUILDS)."""
 
     def __init__(self, timer=None, stats=None, lock=None):
-        self.timer = timer
+        self.timer = None if timer is None else adapt(timer)
         self.stats = stats
         self.stage_s = None if stats is None else stats.get("stage_s")
         self.lock = threading.Lock() if lock is None else lock
@@ -275,17 +298,18 @@ class CallSpans:
             stage = None
         if self.timer is not None:
             return self._span(name, key, cause, stage, tstage)
-        return _NOOP if stage is None else self._wall(stage)
+        return _NOOP if stage is None else _Wall(self, stage)
 
-    @contextlib.contextmanager
-    def _wall(self, stage):
-        t0 = time.perf_counter()
-        try:
-            yield None
-        finally:
-            dt = time.perf_counter() - t0
-            with self.lock:
-                self.stage_s[stage] += dt
+    def stage(self, name: str):
+        return _NOOP if self.timer is None else self.timer.stage(name)
+
+    def mark(self, name) -> None:
+        if self.timer is not None and name is not None:
+            self.timer.mark(name)
+
+    def count(self, name: str, value) -> None:
+        if self.timer is not None:
+            self.timer.count(name, value)
 
     @contextlib.contextmanager
     def _span(self, name, key, cause, stage, tstage):
